@@ -1,6 +1,7 @@
 # memex_tpu service image (reference ships a 2-stage Dockerfile:1-38).
-# For Cloud TPU VMs, set BASE to an image with libtpu preinstalled and the
-# `jax[tpu]` extra in PIP_EXTRA; the default builds a CPU-backend image
+# The default installs JAX with its CUDA 12 plugin (the wheels bring their
+# own CUDA libraries; the host needs the NVIDIA driver and
+# `docker run --gpus all`). PIP_EXTRA="jax" builds a CPU-backend image
 # that serves the full API (encoder + index on XLA:CPU).
 
 ARG BASE=python:3.12-slim
@@ -24,10 +25,9 @@ COPY --from=build /app/native/build native/build
 COPY memex_tpu/ memex_tpu/
 COPY examples/ examples/
 COPY pyproject.toml README.md ./
-# Runtime deps (pyproject [project.dependencies]); override PIP_EXTRA with
-# "jax[tpu] -f https://storage.googleapis.com/jax-releases/libtpu_releases.html"
-# on TPU hosts.
-ARG PIP_EXTRA="jax"
+# Runtime deps (pyproject [project.dependencies]); PIP_EXTRA="jax" for a
+# CPU-only image.
+ARG PIP_EXTRA="jax[cuda12]"
 RUN pip install --no-cache-dir ${PIP_EXTRA} \
     numpy aiohttp requests safetensors jsonschema
 

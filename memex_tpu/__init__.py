@@ -1,14 +1,14 @@
-"""memex_tpu — a TPU-native semantic-search & LLM-memory framework.
+"""memex_tpu — an accelerator-resident semantic-search & LLM-memory framework.
 
 A ground-up rebuild of the capability surface of spyglass-search/memex
-(reference: /root/reference) designed TPU-first:
+designed around one JAX device program per stage:
 
 - host-side control plane: REST API (aiohttp), SQLite task queue + metadata
   (reference: lib/api, lib/worker, lib/libmemex/src/db)
 - device-side data plane: batched Flax MiniLM sentence encoder under jit/pjit,
   a device-resident vector index (flat brute-force, IVF at scale) with a
-  Pallas fused dot-product+top-k kernel, sharded over a jax.sharding.Mesh
-  with collective top-k merges over ICI
+  Pallas (Triton) fused dot-product+top-k kernel, sharded over a
+  jax.sharding.Mesh with collective top-k merges
   (replaces reference's libtorch embeddings + hnsw_rs file index +
   OpenSearch delegation).
 """

@@ -5,7 +5,7 @@ vectors". The reference's ANN index is hnsw_rs at M=16,
 ef_construction=200, ef_search=32 (/root/reference/lib/libmemex/src/
 storage/local.rs:101,76). This harness builds the repo's own native HNSW
 (native/hnsw/hnsw.cpp) at exactly those parameters over a deterministic
-corpus, scores it against an exact f32 oracle, and scores each TPU tier
+corpus, scores it against an exact f32 oracle, and scores each device tier
 against the SAME oracle on the SAME corpus+queries — "tier recall >=
 HNSW recall" closes the target as written (the tier returns at least
 what the reference's index would have).

@@ -1,7 +1,7 @@
 """Layered configuration: .env file -> environment -> CLI flags.
 
 Mirrors the reference's config surface (bin/memex/src/main.rs:20-33,
-.env.template) while adding TPU-specific knobs. Connection URIs select
+.env.template) while adding device-side knobs. Connection URIs select
 backends by scheme, as in the reference (lib/libmemex/src/db/mod.rs:9-28,
 lib/libmemex/src/storage/mod.rs:95-139).
 """
@@ -48,7 +48,7 @@ class Settings:
     local_llm_config: str | None = None
     upload_dir: str = "./uploads"
 
-    # --- TPU-native knobs (new in this framework) ---
+    # --- device-side knobs (new in this framework) ---
     # Embedding model: HF-format checkpoint dir (config.json [+ weights]) or
     # "random" for a deterministic randomly-initialized encoder (useful in
     # hermetic environments with no model downloads).

@@ -1,4 +1,4 @@
-"""Embedding engine: batched TPU sentence encoding.
+"""Embedding engine: batched on-device sentence encoding.
 
 Replaces the reference's SentenceEmbedder (dedicated OS thread around a
 libtorch model, lib/libmemex/src/llm/embedding.rs:83-151) with a

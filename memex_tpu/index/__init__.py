@@ -2,7 +2,7 @@
 
 Replaces the reference's hnsw_rs file store (lib/libmemex/src/storage/
 local.rs) and its OpenSearch delegation (storage/opensearch.rs) with
-TPU-resident indexes:
+Device-resident indexes:
 
 - `FlatIndex`: exact brute-force cosine/MIPS over a fixed-capacity device
   buffer — the recall oracle and the small/medium-scale workhorse.

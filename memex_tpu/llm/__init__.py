@@ -9,7 +9,7 @@ Parity with the reference's llm module (lib/libmemex/src/llm/):
     json-schema extraction (llm/prompter.rs)
   - `fake`: deterministic offline LLM (enables hermetic action tests; the
     reference has no offline path — its tests are #[ignore]d, SURVEY.md §4)
-  - `local`: JAX Llama-family decode on TPU (replaces the reference's GGML
+  - `local`: JAX Llama-family decode on the device (replaces the reference's GGML
     C backend, llm/local/mod.rs)
 """
 

@@ -1,4 +1,4 @@
-"""Local LLM on TPU — JAX Llama-family decode.
+"""Local LLM on the device — JAX Llama-family decode.
 
 Replaces the reference's GGML C backend (lib/libmemex/src/llm/local/mod.rs):
 same capability surface — load weights from a TOML-described config

@@ -1,14 +1,13 @@
 """Llama-family decoder as a pure pytree + jittable functions.
 
-TPU-first decode design (contrast: the reference's GGML token loop is a
+Device-resident decode design (contrast: the reference's GGML token loop is a
 C-side CPU loop driven one token at a time, llm/local/mod.rs:101-126):
 
   - prefill: one forward over the [1, P] padded prompt, filling the
     [L, 2, maxlen, n_kv, hd] KV cache in a single fused pass;
   - generate: `lax.scan` over decode steps inside ONE jit — each step is a
     [1, 1] forward reading the cache at static shapes, so the whole
-    generation is a single XLA dispatch (critical when host<->device
-    round-trips cost ~30ms);
+    generation is a single XLA dispatch (no host round-trip per token);
   - GQA attention, RoPE, RMSNorm, SwiGLU — standard Llama blocks, bf16
     matmuls with f32 softmax/norms.
 
@@ -162,8 +161,8 @@ def load_params(model_dir: str, cfg: LlamaConfig | None = None) -> tuple[LlamaCo
 
 # ---------------------------------------------------------------------------
 # weight storage dtypes. Single-token decode reads every weight once per
-# token, so tok/s is weight-HBM-bandwidth bound (measured at the f32 ceiling
-# on v5e): bf16 storage halves bytes/token, int8 halves again using
+# token, so tok/s is weight-bandwidth bound: bf16 storage halves
+# bytes/token, int8 halves again using
 # per-out-channel symmetric scales folded in AFTER each dot (same math as
 # dequantize-then-matmul, but the bf16 weight matrix is never materialized
 # in HBM — the int8->bf16 convert fuses into the matmul operand stream).
@@ -412,7 +411,7 @@ def sample_token(logits: jnp.ndarray, recent: jnp.ndarray, key, sc: SamplerConfi
 #   prefill() + decode_chunk(): scan `chunk` tokens per dispatch, carry
 #     (KV cache etc.) stays device-resident between dispatches — the host
 #     sees tokens every chunk, giving TRUE streaming (reference parity:
-#     token events over mpsc, local/mod.rs:101-126) at ~1 RPC per chunk.
+#     token events over mpsc, local/mod.rs:101-126) at one fetch per chunk.
 # ---------------------------------------------------------------------------
 
 

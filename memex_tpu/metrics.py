@@ -5,7 +5,7 @@ The reference's observability is logs + a per-response `time` field only
 
   - process-wide counters/timers exposed at GET /api/stats;
   - `profile_trace()` wraps a block in a jax.profiler trace when
-    MEMEX_PROFILE=<dir> is set (XLA/TPU timeline for xprof).
+    MEMEX_PROFILE=<dir> is set (XLA device timeline).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""MiniLM sentence encoder in Flax — the TPU replacement for the
+"""MiniLM sentence encoder in Flax — the device-resident replacement for the
 reference's libtorch sentence-transformer backend.
 
 Reference behavior being reproduced (lib/libmemex/src/llm/embedding.rs):
@@ -7,11 +7,11 @@ Reference behavior being reproduced (lib/libmemex/src/llm/embedding.rs):
   - output: one 384-d vector per window, mean-pooled over the attention
     mask and L2-normalized (what SentenceEmbeddingsModel does internally).
 
-TPU-first design decisions:
+Design decisions:
   - fixed-shape [B, L] int32 ids/mask in, [B, 384] float32 out — no dynamic
     shapes anywhere, so one XLA executable per (B, L) bucket;
   - matmuls run in bfloat16 (`compute_dtype`) with float32 params and
-    float32 LayerNorm/softmax accumulation — MXU-friendly without
+    float32 LayerNorm/softmax accumulation — tensor-core-friendly without
     accuracy loss at 384 hidden;
   - no Python control flow in the forward pass; the layer stack is a plain
     unrolled loop over 12 identical blocks (XLA folds this at trace time).
@@ -282,26 +282,19 @@ class MiniLMEncoder:
         )
         # Residual stream lives in the COMPUTE dtype (r5): LayerNorm math
         # stays f32 internally and residual adds accumulate in f32, but
-        # the [B, L, H] stream between ops is bf16 — halving the HBM
-        # traffic of every LN/residual round-trip. Measured on v5e at
-        # B=512/L=256: 148.7 -> 118.6 ms/batch (+25% windows/s); final
-        # unit vectors agree with the f32-stream forward to mean cos
-        # 1.000000 / max abs 2.4e-4 (well inside the golden-parity bar).
+        # the [B, L, H] stream between ops is bf16 — halving the memory
+        # traffic of every LN/residual round-trip. Final unit vectors
+        # agree with the f32-stream forward to mean cos 1.000000 / max abs
+        # 2.4e-4 (well inside the golden-parity bar).
         # When compute_dtype=float32 the casts are no-ops (bit-identical).
         x = _layer_norm(x, emb["ln_scale"], emb["ln_bias"],
                         cfg.layer_norm_eps).astype(cdt)
 
         nh, hd = cfg.num_heads, cfg.head_dim
         # Boolean key mask for jax.nn.dot_product_attention (XLA's fused
-        # attention path — ~40% faster than hand-rolled einsum+softmax at
-        # [256, 256] on v5e, numerically equivalent under
-        # --xla_allow_excess_precision). Two pallas replacements were
-        # measured and REJECTED at this geometry (r5): the stock flash
-        # kernel is 2.4x slower (block sizes sized for head_dim >= 128),
-        # and a custom VMEM-resident per-head kernel lands at ~8ms/layer
-        # vs XLA's ~5.7 — the per-head [256,32]x[32,256] dots cap the MXU
-        # at 25% lane utilization, so XLA's bf16-scores path is already
-        # within ~10% of this shape's structural floor.
+        # attention path, numerically equivalent to einsum+softmax under
+        # --xla_allow_excess_precision). Its speed at head_dim 32 on the
+        # GPU is not measured yet (ROADMAP S5).
         key_mask = mask.astype(bool)[:, None, None, :]
 
         for lp in params["layers"]:

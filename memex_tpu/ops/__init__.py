@@ -1,23 +1,22 @@
-"""TPU compute kernels for the retrieval data plane.
+"""Compute kernels and helpers for the retrieval data plane.
 
 The reference's scoring path is hnsw_rs graph traversal on CPU SIMD
 (lib/libmemex/src/storage/local.rs:71-91). Here scoring is brute-force
-MIPS/cosine on the MXU:
+MIPS/cosine on the accelerator:
 
-- `topk`: XLA paths — exact `lax.top_k`, two-stage blockwise exact, and
-  hardware `lax.approx_max_k` (TPU PartialReduce op).
-- `fused_topk`: Pallas kernel fusing the [Q,D]x[D,N] block matmul with a
-  running top-k candidate accumulator held in VMEM, so [Q,N] scores are
-  never materialized in HBM (the bandwidth bottleneck at 1M+ vectors).
+- `topk`: XLA paths — exact `lax.top_k` and two-stage blockwise exact.
+- `scan_topk`: a Pallas (Triton) kernel fusing the [Q,D]x[D,N] chunk
+  products with a running candidate bank in registers, so the [Q,N]
+  scores never reach device memory; `use_kernel` chooses it or XLA.
+- `quant`: row quantization and IVF routing helpers.
 """
 
-from .topk import exact_topk, blockwise_topk, approx_topk, score_topk
-from .fused_topk import fused_score_topk
+from .scan_topk import use_kernel
+from .topk import blockwise_topk, exact_topk, score_topk
 
 __all__ = [
-    "exact_topk",
     "blockwise_topk",
-    "approx_topk",
+    "exact_topk",
     "score_topk",
-    "fused_score_topk",
+    "use_kernel",
 ]

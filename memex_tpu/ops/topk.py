@@ -1,4 +1,4 @@
-"""XLA top-k scoring paths (exact oracle + hardware-accelerated approx).
+"""XLA top-k scoring paths (exact oracle + two-stage blockwise).
 
 All functions take pre-computed scores or (db, queries) pairs with
 **unit-normalized** vectors, so inner product == cosine similarity — same
@@ -41,7 +41,7 @@ def blockwise_topk(scores: jnp.ndarray, k: int, count=None, block: int = 4096):
 
     Equivalent result to `exact_topk` (top-k of a set == top-k of the union
     of per-block top-k's) but sorts B small arrays instead of one huge one —
-    much faster on TPU for N in the millions.
+    much cheaper than one sort over N in the millions.
     """
     q, n = scores.shape
     if count is not None:
@@ -62,15 +62,6 @@ def blockwise_topk(scores: jnp.ndarray, k: int, count=None, block: int = 4096):
     return fvals, jnp.take_along_axis(idx, fargs, axis=1)
 
 
-def approx_topk(scores: jnp.ndarray, k: int, count=None, recall_target: float = 0.95):
-    """Hardware-accelerated approximate top-k (TPU PartialReduce op via
-    `lax.approx_max_k`) — the ScaNN-style scoring reducer."""
-    if count is not None:
-        scores = _mask_scores(scores, count)
-    vals, idx = jax.lax.approx_max_k(scores, k, recall_target=recall_target)
-    return vals, idx.astype(jnp.int32)
-
-
 @partial(jax.jit, static_argnames=("k", "method", "block"))
 def score_topk(
     db: jnp.ndarray,
@@ -82,18 +73,17 @@ def score_topk(
 ):
     """One-shot scoring: [N, D] x [Q, D] -> (vals [Q, k], idx [Q, k]).
 
-    The matmul runs in bfloat16 on the MXU with float32 accumulation
+    The matmul runs in bfloat16 with float32 accumulation
     (preferred_element_type) — at unit-norm inputs bf16 mantissa error is
     ~1e-3, far below typical inter-candidate score gaps; the oracle path in
     tests quantifies this.
     """
     if method == "exact_f32":
         # Full-precision scoring for ground-truth oracles. HIGHEST is
-        # load-bearing on TPU: a DEFAULT-precision f32 einsum downcasts
-        # inputs to bf16 on the MXU, which made this "exact" oracle
-        # ~8e-4-noisy at unit-norm — above real rank-10/11 boundary gaps
-        # (measured 1e-3 min at 1M random), so true-top-10 answers from
-        # the f32/refine tiers were being scored as misses (round 4).
+        # load-bearing: a DEFAULT-precision f32 einsum may run in reduced
+        # precision (TF32 on a GPU), ~1e-3-noisy at unit norm, which is
+        # above real rank-10/11 boundary gaps, so true top-10 answers would
+        # be scored as misses.
         scores = jnp.einsum("qd,nd->qn", queries, db,
                             preferred_element_type=jnp.float32,
                             precision=jax.lax.Precision.HIGHEST)
@@ -106,6 +96,4 @@ def score_topk(
     )
     if method == "exact":
         return exact_topk(scores, k, count)
-    if method == "approx":
-        return approx_topk(scores, k, count)
     return blockwise_topk(scores, k, count, block=block)

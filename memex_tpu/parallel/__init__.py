@@ -6,7 +6,7 @@ first-class designs here:
     the encoder, shard axis for the index);
   - `collectives`: shard-local top-k + all_gather merge building blocks
     used by ShardedFlatIndex;
-  - `distributed`: jax.distributed bring-up for multi-host (DCN) serving.
+  - `distributed`: jax.distributed bring-up for multi-host serving.
 """
 
 from .mesh import local_mesh, replicated, row_sharded

@@ -1,7 +1,7 @@
 """Collective building blocks (used inside shard_map bodies).
 
-These ride ICI via XLA collectives — the memex equivalent of what a GPU
-stack would do with NCCL (SURVEY.md §2.3 item 4).
+These are XLA collectives, which XLA hands to NCCL on GPUs (SURVEY.md
+§2.3 item 4).
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Multi-host bring-up.
 
-Single-slice multi-chip uses ICI only (no setup needed). Multi-host
-TPU pods coordinate over DCN through jax.distributed — the TPU-native
-replacement for the NCCL/MPI bootstrap a GPU framework would need
-(the reference has neither; SURVEY.md §5 distributed-communication).
+The cards of one host need no setup: one process drives them all.
+Several hosts coordinate through jax.distributed, which replaces an
+NCCL/MPI bootstrap (the reference has neither; SURVEY.md §5
+distributed-communication).
 """
 
 from __future__ import annotations

@@ -1,22 +1,20 @@
 """Request microbatching with a dispatch/complete pipeline.
 
-TPU throughput comes from batch: one encode+scan over Q=32 queries costs
+Device throughput comes from batch: one encode+scan over Q=32 queries costs
 barely more than Q=1 (the corpus read dominates). The batcher collects
 concurrent requests for up to `max_wait_ms` (or until `max_batch`) and
 executes them as one device call — queries to the same collection share a
 single fused-kernel scan.
 
-Pipelining (r5): with a remote TPU every winner-fetch is a ~30ms RPC.
-A serial collect→dispatch→fetch loop leaves the device idle during the
-fetch AND caps batch rate at 1/RPC; the two-stage mode
-(`run_batch_async`) dispatches batch N+1 while batch N's fetch is in
-flight, and a small completion pool overlaps the fetch RPCs themselves
-(device execution is in-order, so results stay correct; per-client
-ordering holds because each client blocks on its own future). Measured
-on the 1M serve stage: 58.6 QPS (r4, serial + unwarmed buckets) → 1364
-(pipelined, serial completer) → ~1x of the serial device-capability
-yardstick with the pool. In-flight batches are semaphore-bounded so a
-slow device backpressures collection instead of queueing unbounded.
+Pipelining: a serial collect→dispatch→fetch loop leaves the device idle
+during each winner fetch; the two-stage mode (`run_batch_async`)
+dispatches batch N+1 while batch N's fetch is in flight, and a small
+completion pool overlaps the fetches themselves (device execution is
+in-order, so results stay correct; per-client ordering holds because each
+client blocks on its own future). Whether the pipeline beats plain serial
+dispatch on a local host link is ROADMAP D5's question. In-flight batches
+are semaphore-bounded so a slow device backpressures collection instead
+of queueing unbounded.
 
 Latency math: +max_wait_ms p50 cost buys ~Qx throughput under load; with
 no concurrency the queue drains immediately after one wait window.
@@ -68,11 +66,10 @@ class Microbatcher:
         if run_batch_async is not None:
             from concurrent.futures import ThreadPoolExecutor
 
-            # Completion = one blocking winner-fetch RPC (~30ms) per
-            # batch; a single completer caps batch rate at 1/RPC no
-            # matter how fast dispatch is. Two fetch threads overlap the
-            # RPC latency windows (the payloads are KB-scale, so tunnel
-            # bandwidth is not the contended resource); the semaphore
+            # Completion = one blocking winner fetch per batch; a single
+            # completer caps batch rate at 1/fetch latency no matter how
+            # fast dispatch is. Two fetch threads overlap the fetch
+            # latency windows (the payloads are KB-scale); the semaphore
             # bounds total in-flight batches so a slow device
             # backpressures collection instead of queueing unbounded.
             self._sem = threading.Semaphore(pipeline_depth)
@@ -229,7 +226,7 @@ class SearchBatcher:
         if self._fused.supports(store):
             return self._fused.warmup(store, k=k, seq_lens=seq_lens,
                                       q_buckets=buckets)
-        # Non-fused TPU-family stores (IVF/mesh): their index executables
+        # Non-fused device stores (IVF/mesh): their index executables
         # key on the query-batch bucket too; warm them through the same
         # search_batch path the dispatch loop uses. Remote/HNSW stores
         # have no device executables — skip (a remote warmup would fire
@@ -292,8 +289,8 @@ class SearchBatcher:
                         [q for (_, q, _) in items])
                 # Bucket Q for the non-fused path too: index executables
                 # key on the (8-rounded) query-batch shape, so raw fill
-                # sizes would mint up to 16 executables per store —
-                # each a multi-minute compile on a remote TPU. Zero pad
+                # sizes would mint up to 16 executables per store, each a
+                # compile inside a request. Zero pad
                 # rows score 0 everywhere and are sliced off.
                 from .query_path import _Q_BUCKETS, _bucket
 

@@ -4,7 +4,7 @@ Role parity with the reference's file-based HNSW store
 (lib/libmemex/src/storage/local.rs): same default build parameters
 (M=16, ef_construction=200, ef_search=32 — local.rs:101,76), same
 id-mapping responsibility, cosine similarity output. Used as the CPU
-baseline the TPU flat/IVF tiers are benchmarked against (BASELINE.md).
+baseline the device flat/IVF tiers are benchmarked against (BASELINE.md).
 
 Unlike the reference, the graph is NOT re-saved per insert nor re-loaded
 per query; `checkpoint()` persists on demand.

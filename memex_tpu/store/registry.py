@@ -53,9 +53,16 @@ def get_vector_storage(uri: str, collection: str, dim: int = DEFAULT_DIM) -> Vec
 
 
 _INT_OPTS = {"capacity", "n_clusters", "nprobe", "M", "ef_construction",
-             "ef_search", "capacity_per_shard", "block_n", "rerank"}
-_BOOL_OPTS = {"query_quantize", "use_fused", "scan_int4", "center", "refine"}
+             "ef_search", "capacity_per_shard", "rerank"}
+_BOOL_OPTS = {"query_quantize", "center", "refine"}
 _FLOAT_OPTS = {"prune_margin", "prune_target", "recall_target", "bucket_factor"}
+# Options that chose or tuned kernels which no longer exist. The scan
+# implementation is chosen in one place (ops/scan_topk.use_kernel).
+_REMOVED_OPTS = {
+    "use_fused": "the scan implementation is chosen automatically",
+    "scan_int4": "the int4 IVF scan kernel was removed",
+    "block_n": "the kernel sizes its own blocks",
+}
 
 
 def _build_store(uri: str, collection: str, dim: int) -> VectorStore:
@@ -67,6 +74,10 @@ def _build_store(uri: str, collection: str, dim: int) -> VectorStore:
     path = (parsed.netloc + parsed.path) or "./vector_data"
     opts: dict = {}
     for key, val in parse_qsl(parsed.query):
+        if key in _REMOVED_OPTS:
+            raise ValueError(f"vector store option {key!r} was removed: "
+                             f"{_REMOVED_OPTS[key]} (uri {uri!r}); see "
+                             "docs/migration.md")
         if key in _INT_OPTS:
             opts[key] = int(val)
         elif key in _BOOL_OPTS:

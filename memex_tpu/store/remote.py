@@ -3,7 +3,7 @@
 The reference's scale-out story is delegation to an external OpenSearch
 cluster (lib/libmemex/src/storage/opensearch.rs:137-223, factory
 storage/mod.rs:122-133). Here the external service is another memex_tpu
-node (e.g. a dedicated TPU index pod serving many API front-ends), spoken
+node (e.g. a dedicated GPU index host serving many API front-ends), spoken
 to over its /api/vectors/* routes.
 
 URI scheme: `memex+http://host:port` or `memex+https://host` (query params

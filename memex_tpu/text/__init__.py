@@ -6,7 +6,7 @@ budgeting (lib/libmemex/src/llm/mod.rs:76-117). This environment has zero
 egress, so the tokenizer here is fully self-contained: a BERT-style
 WordPiece implementation that loads an HF `vocab.txt` when available and
 falls back to a deterministic built-in character vocab otherwise. Output is
-fixed-shape padded id/mask arrays — the host→TPU contract.
+fixed-shape padded id/mask arrays — the host→device contract.
 """
 
 from .tokenizer import WordPieceTokenizer

@@ -11,7 +11,7 @@
   lib/libmemex/src/llm/mod.rs:77); falls back to a calibrated heuristic
   (≈ max(words·4/3, chars/4), over-counting = budget-safe) in air-gapped
   environments where the cl100k BPE file cannot be fetched.
-- `encode_windows`: the host→TPU contract — fixed-shape padded int32
+- `encode_windows`: the host→device contract — fixed-shape padded int32
   id/mask arrays for a batch of windows.
 """
 

@@ -1,7 +1,7 @@
 """Contrastive fine-tuning of the MiniLM encoder (InfoNCE / in-batch
 negatives — the standard sentence-transformers recipe).
 
-TPU-first training step:
+Training step:
   - pure function `(state, batch) -> (state, metrics)` under jit;
   - data parallelism: batch sharded over the mesh, params/opt-state
     replicated, gradients averaged by XLA's psum under the hood (jit with

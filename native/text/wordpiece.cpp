@@ -1,7 +1,7 @@
 // wordpiece.cpp — fast BERT-style WordPiece tokenizer (C++17).
 //
 // Host-side ingest hot path: documents are tokenized here before windowing
-// and TPU embedding. The reference does this inside HF `tokenizers` (Rust,
+// and device embedding. The reference does this inside HF `tokenizers` (Rust,
 // via rust-bert — SURVEY.md §2.2); this is a fresh implementation of the
 // standard pipeline: basic tokenization (lowercase, accent strip,
 // punctuation split, CJK isolation) + greedy longest-match WordPiece.

@@ -2,7 +2,7 @@
 
 BENCH_r02 was rc=124/parsed=null because the old bench printed its single
 JSON line only after ~7 serial stages. These tests pin the new contract
-hermetically (no TPU, no device work): the Reporter emits a full parseable
+hermetically (no accelerator, no device work): the Reporter emits a full parseable
 line at every tick, stage budgets skip-and-record instead of dying, the
 roofline fields are present and sane, and the weights resolver records an
 explicit fallback when offline.
@@ -15,15 +15,17 @@ sys.path.insert(0, "/root/repo")
 
 import bench  # noqa: E402
 
+H100 = "NVIDIA H100 80GB HBM3"
+
 
 def _fake_results():
     return {
         "f32": {"qps": 15000.0, "p50_batch_ms": 2.1, "recall_at_10": 0.99,
-                "query_batch": 32, "roofline": bench._roofline("f32", 32, 32 / 15000.0)},
+                "query_batch": 32, "roofline": bench._roofline("f32", 32, 32 / 15000.0, kind=H100)},
         "int8q_q512": {"qps": 372000.0, "p50_batch_ms": 1.4,
                        "recall_at_10": 0.969, "query_batch": 512,
                        "roofline": bench._roofline("int8q_q512", 512,
-                                                   512 / 372000.0)},
+                                                   512 / 372000.0, kind=H100)},
         "bad": {"qps": 9e9, "p50_batch_ms": 0.01, "recall_at_10": 0.5,
                 "query_batch": 32, "roofline": {}},
     }
@@ -54,17 +56,22 @@ def test_reporter_emits_parseable_full_line(capsys):
 
 
 def test_roofline_fields():
-    r = bench._roofline("int8q_q512", 512, 512 / 372000.0)
+    r = bench._roofline("int8q_q512", 512, 512 / 372000.0, kind=H100)
     assert set(r) == {"achieved_tops", "hbm_gbps", "pct_peak_hbm",
                       "pct_peak_compute", "bound"}
     # 372k QPS at Q=512: per-batch 1.376ms over 1M rows x 388 B = 295 GB/s.
     assert 250 < r["hbm_gbps"] < 350
     assert 0 < r["pct_peak_hbm"] < 100
-    assert r["bound"] in ("hbm", "mxu")
-    # int4 reads half the bytes per row.
-    r4 = bench._roofline("int4", 32, 1e-3)
-    r8 = bench._roofline("int8q", 32, 1e-3)
-    assert r4["hbm_gbps"] < r8["hbm_gbps"]
+    assert r["bound"] in ("hbm", "compute")
+    # int8 codes read half the bytes per row of bf16.
+    r16 = bench._roofline("bf16", 32, 1e-3, kind=H100)
+    r8 = bench._roofline("int8q", 32, 1e-3, kind=H100)
+    assert r8["hbm_gbps"] < r16["hbm_gbps"]
+    # A device without published peaks is an error, not a default.
+    import pytest
+
+    with pytest.raises(KeyError, match="no published peaks"):
+        bench._roofline("int8q", 32, 1e-3, kind="cpu")
 
 
 def test_reporter_recall_regression_still_emits():
@@ -175,7 +182,7 @@ def test_stage_error_surfaces_in_compact_line(capsys):
     # nested stage-internal errors count too (e.g. ivf_int4_pruned_error
     # inside scale_10M)
     rep.doc["e2e"]["scale_10M"] = {
-        "ivf_pruned": {"ivf_int4_pruned_error": "Mosaic lowering failed"}}
+        "ivf_pruned": {"ivf_int4_pruned_error": "kernel lowering failed"}}
     c = rep.compact()
     assert c["errors"] == 2
     assert c["error_stages"] == ["ivf_int4_pruned", "llm_decode"]

@@ -3,13 +3,13 @@
 Round-3 follow-through on verdict item 6 (operating point on
 embedding-distributed vectors): random- and pretrained-MiniLM corpora
 concentrate at pairwise cos 0.95-0.997, so the informative score gaps sit
-below bf16 input resolution near 1.0 — the regime every scan kernel (MXU
-bf16 inputs) and _search_xla (which mirrors them) operates in. Parity
+below bf16 input resolution near 1.0 — the regime the fused scan kernel
+(bf16 inputs) and _search_xla (which mirrors it) operate in. Parity
 target: the reference scores in f32 end to end (hnsw_rs distance in
 lib/libmemex/src/storage/local.rs:76-101), so it never sees this cliff;
-centered residual storage + HIGHEST-precision rerank is the TPU-native
-equivalent. Fused kernels run in interpret mode, which executes the same
-bf16 casts, so the precision effect reproduces hermetically on CPU.
+centered residual storage + HIGHEST-precision rerank is this system's
+equivalent. The fused kernel runs in interpret mode, which executes the
+same bf16 casts, so the precision effect reproduces hermetically on CPU.
 """
 
 import numpy as np
@@ -48,8 +48,7 @@ class TestCenteredFloatIVF:
 
         def build(**kw):
             ivf = IVFIndex(dim=d, n_clusters=8, nprobe=8, dtype="float32",
-                           use_fused=True, **kw)
-            ivf._interpret = True
+                           **kw)
             ivf.build(vecs, [str(i) for i in range(n)])
             return ivf
 
@@ -63,17 +62,15 @@ class TestCenteredFloatIVF:
         assert r_cen >= r_raw
 
     def test_exact_scan_precision_recovers_bank(self, rng):
-        """scan_precision=highest: the slot fold selects by exact f32
-        scores, so the candidate bank itself keeps the true top-k even
-        when boundary gaps undercut bf16 input resolution."""
+        """scan_precision=highest: the probe scan scores in exact f32, so
+        the candidates themselves keep the true top-k even when boundary
+        gaps undercut bf16 input resolution."""
         n, d, k = 4096, 384, 10
         vecs = aniso_corpus(rng, n, d)
         qs = vecs[rng.choice(n, 16, replace=False)]
         exact = np.argsort(-(qs @ vecs.T), axis=1)[:, :k]
         ivf = IVFIndex(dim=d, n_clusters=8, nprobe=8, dtype="float32",
-                       use_fused=True, rerank=1024,
-                       scan_precision="highest")
-        ivf._interpret = True
+                       rerank=1024, scan_precision="highest")
         ivf.build(vecs, [str(i) for i in range(n)])
         r = recall_at(ivf.search(qs, k), exact, k)
         assert r >= 0.97, r
@@ -82,8 +79,7 @@ class TestCenteredFloatIVF:
         n, d, k = 2048, 64, 5
         vecs = aniso_corpus(rng, n, d, resid=0.05)
         qs = vecs[:4]
-        ivf = IVFIndex(dim=d, n_clusters=8, nprobe=8, dtype="float32",
-                       use_fused=False, rerank=32)
+        ivf = IVFIndex(dim=d, n_clusters=8, nprobe=8, dtype="float32", rerank=32)
         ivf.build(vecs, [str(i) for i in range(n)])
         for qi, hits in enumerate(ivf.search(qs, k)):
             for sid, score in hits:
@@ -93,8 +89,7 @@ class TestCenteredFloatIVF:
     def test_rerank_with_deletes(self, rng):
         n, d, k = 1024, 32, 5
         vecs = aniso_corpus(rng, n, d, resid=0.1)
-        ivf = IVFIndex(dim=d, n_clusters=4, nprobe=4, dtype="float32",
-                       use_fused=False, rerank=32)
+        ivf = IVFIndex(dim=d, n_clusters=4, nprobe=4, dtype="float32", rerank=32)
         ivf.build(vecs, [str(i) for i in range(n)])
         ivf.delete(["0", "1", "2"])
         hits = ivf.search(vecs[:1], k)[0]
@@ -108,8 +103,8 @@ class TestFlatRerank:
         vecs = aniso_corpus(rng, n, d)
         qs = vecs[rng.choice(n, 16, replace=False)]
         exact = np.argsort(-(qs @ vecs.T), axis=1)[:, :k]
-        idx = FlatIndex(dim=d, dtype="float32", use_fused=True, rerank=64)
-        idx._interpret = True
+        idx = FlatIndex(dim=d, dtype="float32", rerank=64)
+        idx._interpret = True  # the fused kernel, interpreted
         idx.add(vecs, [str(i) for i in range(n)])
         r = recall_at(idx.search(qs, k), exact, k)
         assert r >= 0.95, r
@@ -122,8 +117,8 @@ class TestFlatRerank:
         qs = vecs[rng.choice(n, 16, replace=False)]
         exact = np.argsort(-(qs @ vecs.T), axis=1)[:, :k]
         ivf = IVFIndex(dim=d, n_clusters=8, nprobe=8, dtype="float32",
-                       use_fused=True, rerank=64)
-        ivf._interpret = True
+                       rerank=64)
+        ivf.spill._interpret = True  # the spill's fused kernel, interpreted
         ivf.build(vecs, [str(i) for i in range(n)])
         assert ivf.spill.rerank == 64
         # k-means on a cos~0.998 corpus is unbalanced: a large spill is
@@ -137,7 +132,7 @@ class TestCenteredFloatFlat:
     def test_centered_flat_restores_true_scores(self, rng):
         n, d, k = 512, 48, 5
         vecs = aniso_corpus(rng, n, d, resid=0.05)
-        idx = FlatIndex(dim=d, dtype="float32", use_fused=False)
+        idx = FlatIndex(dim=d, dtype="float32")
         idx.add(vecs, [str(i) for i in range(n)])
         assert idx.mean is not None and idx.mean.any()
         for qi, hits in enumerate(idx.search(vecs[:3], k)):
@@ -149,11 +144,11 @@ class TestCenteredFloatFlat:
     def test_centered_float_checkpoint_roundtrip(self, rng, tmp_path):
         n, d, k = 256, 32, 5
         vecs = aniso_corpus(rng, n, d, resid=0.05)
-        idx = FlatIndex(dim=d, dtype="float32", use_fused=False)
+        idx = FlatIndex(dim=d, dtype="float32")
         idx.add(vecs, [str(i) for i in range(n)])
         path = str(tmp_path / "cen")
         idx.save(path)
-        back = FlatIndex.load(path, use_fused=False)
+        back = FlatIndex.load(path)
         assert back.mean is not None
         np.testing.assert_array_equal(back.mean, idx.mean)
         # Restored residuals are byte-identical (no re-centering on load).
@@ -169,8 +164,7 @@ class TestCenteredFloatFlat:
         absolute scores are true cosines from both sides."""
         n, d, k = 1024, 32, 5
         vecs = aniso_corpus(rng, n, d, resid=0.1)
-        ivf = IVFIndex(dim=d, n_clusters=4, nprobe=4, dtype="float32",
-                       use_fused=False)
+        ivf = IVFIndex(dim=d, n_clusters=4, nprobe=4, dtype="float32")
         ivf.build(vecs[:896], [str(i) for i in range(896)])
         ivf.add(vecs[896:], [str(i) for i in range(896, n)])  # -> spill
         assert ivf.spill.count > 0

@@ -114,7 +114,7 @@ def test_raw_checkpoint_loads_with_zero_mean(concentrated, tmp_path):
 
 
 def test_add_quantized_pins_raw_semantics(concentrated):
-    from memex_tpu.ops.fused_topk import quantize_rows_int8
+    from memex_tpu.ops.quant import quantize_rows_int8
     import jax.numpy as jnp
 
     db, qs = concentrated
@@ -133,8 +133,7 @@ class TestIVFCentering:
         throughout, recall vs the f32 oracle holds at every step."""
         db, qs = concentrated
         n0 = 3072
-        idx = IVFIndex(dim=64, n_clusters=16, nprobe=16, dtype="int8",
-                       use_fused=False)
+        idx = IVFIndex(dim=64, n_clusters=16, nprobe=16, dtype="int8")
         idx.build(db[:n0], [f"r{i}" for i in range(n0)])
         assert idx.mean is not None and idx.mean.any()
         np.testing.assert_allclose(idx.spill.mean, idx.mean)
@@ -155,8 +154,7 @@ class TestIVFCentering:
 
     def test_scores_are_true_cosines(self, concentrated):
         db, qs = concentrated
-        idx = IVFIndex(dim=64, n_clusters=16, nprobe=16, dtype="int8",
-                       use_fused=False)
+        idx = IVFIndex(dim=64, n_clusters=16, nprobe=16, dtype="int8")
         idx.build(db, [f"r{i}" for i in range(len(db))])
         hits = idx.search(qs[:4], 5)
         for qi in range(4):
@@ -167,12 +165,11 @@ class TestIVFCentering:
 
     def test_save_load_roundtrip(self, concentrated, tmp_path):
         db, qs = concentrated
-        idx = IVFIndex(dim=64, n_clusters=16, nprobe=16, dtype="int8",
-                       use_fused=False)
+        idx = IVFIndex(dim=64, n_clusters=16, nprobe=16, dtype="int8")
         idx.build(db[:3072], [f"r{i}" for i in range(3072)])
         idx.add(db[3072:3200], [f"r{i}" for i in range(3072, 3200)])
         idx.save(str(tmp_path / "ivf"))
-        back = IVFIndex.load(str(tmp_path / "ivf"), use_fused=False)
+        back = IVFIndex.load(str(tmp_path / "ivf"))
         np.testing.assert_allclose(back.mean, idx.mean)
         np.testing.assert_allclose(back.spill.mean, idx.mean)
         assert back.search(qs[:4], 5) == idx.search(qs[:4], 5)
@@ -181,11 +178,9 @@ class TestIVFCentering:
         db, qs = concentrated
         exact = np.argsort(-(qs @ db.T), axis=1)[:, :10]
         ids = [f"r{i}" for i in range(len(db))]
-        raw = IVFIndex(dim=64, n_clusters=16, nprobe=16, dtype="int8",
-                       use_fused=False, center=False)
+        raw = IVFIndex(dim=64, n_clusters=16, nprobe=16, dtype="int8", center=False)
         raw.build(db, ids)
-        cen = IVFIndex(dim=64, n_clusters=16, nprobe=16, dtype="int8",
-                       use_fused=False)
+        cen = IVFIndex(dim=64, n_clusters=16, nprobe=16, dtype="int8")
         cen.build(db, ids)
         r_raw = _recall(raw.search(qs, 10), exact)
         r_cen = _recall(cen.search(qs, 10), exact)
@@ -205,8 +200,7 @@ class TestCenteredLifecycleRegressions:
         scored ~q*mean too low afterwards."""
         db, qs = concentrated
         n0 = 3072
-        idx = IVFIndex(dim=64, n_clusters=16, nprobe=16, dtype="float32",
-                       use_fused=False)
+        idx = IVFIndex(dim=64, n_clusters=16, nprobe=16, dtype="float32")
         idx.build(db[:n0], [f"r{i}" for i in range(n0)])
         assert idx.mean is not None and idx.mean.any()
         idx.add(db[n0:], [f"r{i}" for i in range(n0, len(db))])  # spill
@@ -230,8 +224,7 @@ class TestCenteredLifecycleRegressions:
         space while search kept adding +q*mean, inflating them by ~1.0."""
         db, qs = concentrated
         n0 = 3072
-        idx = IVFIndex(dim=64, n_clusters=16, nprobe=16, dtype="int8",
-                       use_fused=False)
+        idx = IVFIndex(dim=64, n_clusters=16, nprobe=16, dtype="int8")
         idx.build(db[:n0], [f"r{i}" for i in range(n0)])
         idx.add(db[n0:], [f"r{i}" for i in range(n0, len(db))])
         assert idx.spill.count > 0

@@ -34,7 +34,7 @@ def hits_of(index, qs, k):
 
 class TestFlatSegmentLog:
     def test_append_moves_only_delta(self, rng, tmp_path):
-        idx = FlatIndex(dim=32, dtype="int8", use_fused=False)
+        idx = FlatIndex(dim=32, dtype="int8")
         idx.add(unit(rng, 2048, 32), [f"a{i}" for i in range(2048)])
         path = str(tmp_path / "c")
         idx.save(path)
@@ -47,13 +47,13 @@ class TestFlatSegmentLog:
         seg2 = np.load(os.path.join(str(tmp_path), meta["segments"][1]))
         assert len(seg2["ids"]) == 100  # only the delta moved
         qs = unit(rng, 4, 32)
-        idx2 = FlatIndex.load(path, use_fused=False)
+        idx2 = FlatIndex.load(path)
         assert hits_of(idx2, qs, 5) == hits_of(idx, qs, 5)
 
     def test_save_uses_host_shadow(self, rng, tmp_path):
         # Serving-path adds keep the shadow valid -> save reads zero device
         # bytes (the raw rows come straight from the host mirror).
-        idx = FlatIndex(dim=16, dtype="int8", use_fused=False)
+        idx = FlatIndex(dim=16, dtype="int8")
         db = unit(rng, 300, 16)
         idx.add(db, [f"r{i}" for i in range(300)])
         assert idx._sh_valid
@@ -63,7 +63,7 @@ class TestFlatSegmentLog:
         np.testing.assert_array_equal(raw, np.asarray(idx.buf)[:300])
 
     def test_delete_recorded_and_dropped_on_load(self, rng, tmp_path):
-        idx = FlatIndex(dim=32, use_fused=False)
+        idx = FlatIndex(dim=32)
         idx.add(unit(rng, 64, 32), [f"r{i}" for i in range(64)])
         path = str(tmp_path / "c")
         idx.save(path)
@@ -73,12 +73,12 @@ class TestFlatSegmentLog:
         # dead rows are tracked positionally (row index), not by id — an
         # id tombstone would also kill a re-added live row at load.
         assert sorted(meta["dead_rows"]) == [3, 10]
-        idx2 = FlatIndex.load(path, use_fused=False)
+        idx2 = FlatIndex.load(path)
         assert idx2.count == 62
         assert "r3" not in idx2._id_to_row and "r10" not in idx2._id_to_row
 
     def test_compaction_triggers_full_rewrite(self, rng, tmp_path):
-        idx = FlatIndex(dim=32, dtype="int8", use_fused=False)
+        idx = FlatIndex(dim=32, dtype="int8")
         idx.add(unit(rng, 128, 32), [f"r{i}" for i in range(128)])
         path = str(tmp_path / "c")
         idx.save(path)
@@ -94,26 +94,26 @@ class TestFlatSegmentLog:
         assert sorted(segs_on_disk) == sorted(meta["segments"])
 
     def test_resume_after_load_appends(self, rng, tmp_path):
-        idx = FlatIndex(dim=32, use_fused=False)
+        idx = FlatIndex(dim=32)
         idx.add(unit(rng, 64, 32), [f"r{i}" for i in range(64)])
         path = str(tmp_path / "c")
         idx.save(path)
-        idx2 = FlatIndex.load(path, use_fused=False)
+        idx2 = FlatIndex.load(path)
         idx2.add(unit(rng, 32, 32), [f"s{i}" for i in range(32)])
         idx2.save(path)
         meta = json.load(open(path + ".meta.json"))
         assert len(meta["segments"]) == 2  # appended, not rewritten
-        idx3 = FlatIndex.load(path, use_fused=False)
+        idx3 = FlatIndex.load(path)
         assert idx3.count == 96
 
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "int4"])
     def test_roundtrip_all_dtypes(self, rng, tmp_path, dtype):
         db, qs = unit(rng, 256, 32), unit(rng, 4, 32)
-        idx = FlatIndex(dim=32, dtype=dtype, use_fused=False)
+        idx = FlatIndex(dim=32, dtype=dtype)
         idx.add(db, [f"r{i}" for i in range(256)])
         path = str(tmp_path / "c")
         idx.save(path)
-        idx2 = FlatIndex.load(path, use_fused=False)
+        idx2 = FlatIndex.load(path)
         assert idx2.dtype == dtype
         a, b = idx.search(qs, 5), idx2.search(qs, 5)
         for ha, hb in zip(a, b):
@@ -122,7 +122,7 @@ class TestFlatSegmentLog:
                                        [h[1] for h in hb], atol=2e-2)
 
     def test_remove_checkpoint_cleans_segments(self, rng, tmp_path):
-        idx = FlatIndex(dim=16, use_fused=False)
+        idx = FlatIndex(dim=16)
         idx.add(unit(rng, 32, 16), [f"r{i}" for i in range(32)])
         path = str(tmp_path / "c")
         idx.save(path)
@@ -135,8 +135,7 @@ class TestFlatSegmentLog:
 class TestIVFCheckpointV2:
     def _build(self, rng, n=2048, d=32, dtype="int8"):
         db = unit(rng, n, d)
-        idx = IVFIndex(dim=d, n_clusters=16, nprobe=16, dtype=dtype,
-                       use_fused=False)
+        idx = IVFIndex(dim=d, n_clusters=16, nprobe=16, dtype=dtype)
         idx.build(db, [f"v{i}" for i in range(n)])
         return idx, db
 
@@ -159,7 +158,7 @@ class TestIVFCheckpointV2:
         qs = unit(rng, 4, 32)
         path = str(tmp_path / "c.ivf")
         idx.save(path)
-        idx2 = IVFIndex.load(path, use_fused=False)
+        idx2 = IVFIndex.load(path)
         # identical stored codes + scales -> bitwise-identical scores
         a, b = idx.search(qs, 10), idx2.search(qs, 10)
         assert a == b
@@ -172,7 +171,7 @@ class TestIVFCheckpointV2:
         idx.delete(["v5", "s3"])
         path = str(tmp_path / "c.ivf")
         idx.save(path)
-        idx2 = IVFIndex.load(path, use_fused=False)
+        idx2 = IVFIndex.load(path)
         assert idx2.count == idx.count == 530
         assert "v5" not in idx2._live and "s3" not in idx2._live
         hits = idx2.search(unit(rng, 2, 32), 512)
@@ -184,8 +183,7 @@ class TestDeviceRebuild:
     def test_rebuild_device_folds_spill(self, rng):
         n, d = 2048, 32
         db = unit(rng, n, d)
-        idx = IVFIndex(dim=d, n_clusters=8, nprobe=8, dtype="int8",
-                       use_fused=False)
+        idx = IVFIndex(dim=d, n_clusters=8, nprobe=8, dtype="int8")
         idx.build(db, [f"v{i}" for i in range(n)])
         extra = unit(rng, 300, d)
         idx.add(extra, [f"s{i}" for i in range(300)])
@@ -205,8 +203,7 @@ class TestDeviceRebuild:
     def test_rebuild_device_respects_deletes(self, rng):
         n, d = 1024, 32
         db = unit(rng, n, d)
-        idx = IVFIndex(dim=d, n_clusters=8, nprobe=8, dtype="int8",
-                       use_fused=False)
+        idx = IVFIndex(dim=d, n_clusters=8, nprobe=8, dtype="int8")
         idx.build(db, [f"v{i}" for i in range(n)])
         idx.add(unit(rng, 64, d), [f"s{i}" for i in range(64)])
         idx.delete(["v1", "v2", "s1"])
@@ -234,7 +231,7 @@ class TestMeshSegmentLog:
         from memex_tpu.index import ShardedFlatIndex
 
         idx = ShardedFlatIndex(dim=32, mesh=mesh, capacity_per_shard=1024,
-                               dtype="int8", use_fused=False)
+                               dtype="int8")
         idx.add(unit(rng, 500, 32), [f"r{i}" for i in range(500)])
         path = str(tmp_path / "m")
         idx.save(path)
@@ -248,7 +245,7 @@ class TestMeshSegmentLog:
         seg2 = np.load(os.path.join(str(tmp_path), meta["segments"][1]))
         assert len(seg2["ids"]) == 40  # only the delta moved
         idx2 = ShardedFlatIndex(dim=32, mesh=mesh, capacity_per_shard=1024,
-                                dtype="int8", use_fused=False)
+                                dtype="int8")
         assert idx2.restore(path) == 539
         qs = unit(rng, 4, 32)
         a, b = idx.search(qs, 10), idx2.search(qs, 10)
@@ -260,7 +257,7 @@ class TestMeshSegmentLog:
         from memex_tpu.index import ShardedFlatIndex
 
         idx = ShardedFlatIndex(dim=16, mesh=mesh, capacity_per_shard=256,
-                               dtype="int8", use_fused=False)
+                               dtype="int8")
         db = unit(rng, 100, 16)
         idx.add(db, [f"r{i}" for i in range(100)])
         grows = sorted(idx.ids)
@@ -279,8 +276,7 @@ class TestScaleProof:
     def test_200k_save_and_incremental_save_fast(self, rng, tmp_path):
         n, d = 200_000, 16
         db = unit(rng, n, d)
-        idx = IVFIndex(dim=d, n_clusters=64, nprobe=8, dtype="int8",
-                       use_fused=False, bucket_factor=1.5)
+        idx = IVFIndex(dim=d, n_clusters=64, nprobe=8, dtype="int8", bucket_factor=1.5)
         idx.build(db, [f"v{i}" for i in range(n)])
         path = str(tmp_path / "big.ivf")
         t0 = time.perf_counter()
@@ -300,8 +296,7 @@ class TestScaleProof:
     def test_200k_device_rebuild_fast(self, rng):
         n, d = 200_000, 16
         db = unit(rng, n, d)
-        idx = IVFIndex(dim=d, n_clusters=64, nprobe=8, dtype="int8",
-                       use_fused=False, bucket_factor=1.5)
+        idx = IVFIndex(dim=d, n_clusters=64, nprobe=8, dtype="int8", bucket_factor=1.5)
         idx.build(db, [f"v{i}" for i in range(n)])
         idx.add(unit(rng, 5000, d), [f"s{i}" for i in range(5000)])
         t0 = time.perf_counter()
@@ -318,8 +313,7 @@ class TestFoldSpill:
 
     def _idx(self, rng, n=2048, d=32, C=8):
         db = unit(rng, n, d)
-        idx = IVFIndex(dim=d, n_clusters=C, nprobe=C, dtype="int8",
-                       use_fused=False, bucket_factor=2.0)
+        idx = IVFIndex(dim=d, n_clusters=C, nprobe=C, dtype="int8", bucket_factor=2.0)
         idx.build(db, [f"v{i}" for i in range(n)])
         return idx, db
 
@@ -367,8 +361,7 @@ class TestFoldSpill:
         # C*1024 = 4096; adding past that must leave rows spilled.
         n, d = 512, 32
         db = unit(rng, n, d)
-        idx = IVFIndex(dim=d, n_clusters=4, nprobe=4, dtype="int8",
-                       use_fused=False, bucket_factor=1.0)
+        idx = IVFIndex(dim=d, n_clusters=4, nprobe=4, dtype="int8", bucket_factor=1.0)
         idx.build(db, [f"v{i}" for i in range(n)])
         extra = unit(rng, 3700, d)
         idx.add(extra, [f"s{i}" for i in range(3700)])
@@ -395,8 +388,7 @@ class TestFoldSpill:
             return (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32)
 
         db = np.concatenate([blob(c0, 1024), blob(c1, 300)])
-        idx = IVFIndex(dim=d, n_clusters=2, nprobe=2, dtype="int8",
-                       use_fused=False, bucket_factor=1.0)
+        idx = IVFIndex(dim=d, n_clusters=2, nprobe=2, dtype="int8", bucket_factor=1.0)
         idx.build(db, [f"v{i}" for i in range(1324)])
         sizes = np.asarray(idx.sizes)
         M = idx.data.shape[1]
@@ -421,7 +413,7 @@ class TestFoldSpill:
         path = str(tmp_path / "f.ivf")
         idx.save(path)
         qs = unit(rng, 4, 32)
-        idx2 = IVFIndex.load(path, use_fused=False)
+        idx2 = IVFIndex.load(path)
         assert not idx2.needs_recovery
         assert idx.search(qs, 10) == idx2.search(qs, 10)
 
@@ -430,7 +422,7 @@ class TestFoldSpill:
         # save time -> needs_recovery on load.
         import jax.numpy as jnp
 
-        from memex_tpu.ops.fused_topk import quantize_rows_int8
+        from memex_tpu.ops.quant import quantize_rows_int8
 
         idx, db = self._idx(rng, n=1024)
         codes, scales = quantize_rows_int8(jnp.asarray(unit(rng, 64, 32)))
@@ -438,7 +430,7 @@ class TestFoldSpill:
         idx._live.update(f"d{i}" for i in range(64))
         path = str(tmp_path / "ds.ivf")
         idx.save(path)
-        idx2 = IVFIndex.load(path, use_fused=False)
+        idx2 = IVFIndex.load(path)
         assert idx2.needs_recovery  # spill rows were skipped
         assert idx2.spill.count == 0
         # the cluster base itself WAS restored (host shadow existed)

@@ -75,7 +75,7 @@ def live_server(tmp_path_factory):
 def test_load_ask_qq_forget(live_server, tmp_path, capsys):
     doc = tmp_path / "doc.txt"
     doc.write_text(
-        "The memex_tpu project stores vectors on TPU. "
+        "The memex_tpu project stores vectors on the GPU. "
         "Retrieval runs a fused Pallas kernel. " * 3
     )
     assert clippy.main(["--host", live_server, "load-file", str(doc)]) == 0

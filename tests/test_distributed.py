@@ -1,7 +1,7 @@
-"""Multi-host (DCN) bring-up test: two real OS processes initialize
+"""Multi-host bring-up test: two real OS processes initialize
 jax.distributed through parallel/distributed.init_multihost and compute a
 global reduction over a cross-process mesh (SURVEY.md §2.3 item 4 — the
-TPU-native replacement for an NCCL/MPI bootstrap). Runs hermetically on
+replacement for an NCCL/MPI bootstrap). Runs hermetically on
 CPU via gloo collectives."""
 
 import os
@@ -31,7 +31,7 @@ WORKER = textwrap.dedent(
     assert len(jax.local_devices()) < len(devs)  # mesh spans both processes
     mesh = Mesh(devs, ("d",))
     x = jax.device_put(jnp.ones((len(devs),), jnp.float32), NamedSharding(mesh, P("d")))
-    total = float(jax.jit(jnp.sum)(x))  # cross-process reduction over DCN
+    total = float(jax.jit(jnp.sum)(x))  # cross-process reduction
     assert total == float(len(devs)), total
     print(f"OK {pid} {total}")
     """
@@ -88,11 +88,11 @@ WORKER_SEARCH = textwrap.dedent(
     db = rng.standard_normal((64, 32)).astype("float32")
     db /= np.linalg.norm(db, axis=1, keepdims=True)
     idx = ShardedFlatIndex(dim=32, mesh=mesh, capacity_per_shard=64,
-                           dtype="int8", use_fused=False)
+                           dtype="int8")
     idx.add(db, [f"v{i}" for i in range(64)])
     assert sum(idx.counts) == 64 and min(idx.counts) > 0  # both shards hold rows
     # The search executes per-shard scans + an all_gather top-k merge over
-    # the cross-process (DCN) mesh; results are replicated to both hosts.
+    # the cross-process mesh; results are replicated to both hosts.
     hits = idx.search(db[:4], k=3)
     for i in range(4):
         assert hits[i][0][0] == f"v{i}", (pid, hits[i])
@@ -106,8 +106,8 @@ WORKER_SEARCH = textwrap.dedent(
 
 def test_two_process_sharded_search_over_dcn(tmp_path):
     """Round-2 VERDICT item 10: beyond a psum — a sharded-index search
-    with collective merge across two real OS processes (the DCN topology;
-    gloo on CPU stands in for the TPU's ICI/DCN collectives)."""
+    with collective merge across two real OS processes (the multi-host
+    topology; gloo on CPU stands in for the device collectives)."""
     worker = tmp_path / "worker_search.py"
     worker.write_text(WORKER_SEARCH)
     coord = f"127.0.0.1:{_free_port()}"

@@ -56,7 +56,7 @@ def tiny_engine(mesh=None, **kw):
 
 def test_encode_single_unit_norm():
     eng = tiny_engine()
-    v = eng.encode_single("hello world, this is memex on TPU")
+    v = eng.encode_single("hello world, this is memex on a GPU")
     assert v.shape == (64,)
     assert abs(float(np.linalg.norm(v)) - 1.0) < 1e-4
 
@@ -114,8 +114,8 @@ def test_encode_many_matches_encode():
 
 
 def test_fetch_dtype_f16_close_and_pipelined_chunks_ordered():
-    """fetch_dtype=float16 halves the device->host bytes (the ingest
-    ceiling on remote-attached TPUs); vectors must round-trip within f16
+    """fetch_dtype=float16 halves the device->host bytes; vectors must
+    round-trip within f16
     resolution, and the dispatch-all-then-fetch pipeline must keep chunk
     results in their original row order."""
     import numpy as np

@@ -1,17 +1,25 @@
-"""Fused Pallas kernel logic tests (interpret mode — runs on CPU, so the
-kernel's slot-accumulator algorithm is covered hermetically; the compiled
-path is exercised on real TPU by bench.py and the index tests there)."""
+"""Flat scan tests: the fused Pallas (Triton) kernel in interpret mode, the
+plain XLA path beside it, and the one function that chooses between them.
 
+Interpret mode runs the kernel's program body on the CPU, so its chunk
+walk, masks and slot fold are covered here; the compiled kernel runs on
+the GPU in `chip_smoke.py` and in the tests marked `gpu`.
+"""
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from memex_tpu.ops.fused_topk import (
-    fused_score_topk,
-    fused_score_topk_int8,
-    quantize_rows_int8,
-)
+from memex_tpu.index.flat import FlatIndex, device_search, scan_mode
+from memex_tpu.ops.quant import (np_quantize_rows_int4, quantize_rows_int8,
+                                 route_union)
+from memex_tpu.ops.scan_topk import (BANK, MAX_K, _SMEM, chunk_plan,
+                                     n_slices, reference_topk, scan_candidates,
+                                     scan_topk, slice_bounds, use_kernel)
 from memex_tpu.ops.topk import blockwise_topk, exact_topk, score_topk
+
+IMPLS = ["kernel", "xla"]
 
 
 def unit(rng, n, d):
@@ -19,9 +27,27 @@ def unit(rng, n, d):
     return v / np.linalg.norm(v, axis=1, keepdims=True)
 
 
+def clustered(rng, n, d, c=16, noise=0.5):
+    cents = unit(rng, c, d)
+    v = cents[rng.integers(0, c, n)] + noise / np.sqrt(d) * rng.standard_normal(
+        (n, d)).astype(np.float32)
+    return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+
+def recall(got_ids, want_ids):
+    return float(np.mean([len(set(g) & set(w)) / len(w)
+                          for g, w in zip(got_ids, want_ids)]))
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(11)
+
+
+def flat(dtype, impl, **kw):
+    idx = FlatIndex(dim=kw.pop("dim", 64), dtype=dtype, **kw)
+    idx._interpret = impl == "kernel"
+    return idx
 
 
 class TestXlaTopk:
@@ -43,60 +69,17 @@ class TestXlaTopk:
         assert vals.shape == (3, 5) and idx.shape == (3, 5)
 
 
-class TestFusedKernelInterpret:
-    def test_matches_exact(self, rng):
-        db, q = unit(rng, 4096, 128), unit(rng, 4, 128)
-        fv, fi = fused_score_topk(
-            jnp.asarray(db), jnp.asarray(q), 10, count=4096,
-            block_n=1024, interpret=True,
-        )
-        ev, ei = exact_topk(jnp.asarray(q @ db.T), 10)
-        fi, ei = np.asarray(fi), np.asarray(ei)
-        recall = np.mean([len(set(fi[i]) & set(ei[i])) / 10 for i in range(4)])
-        assert recall >= 0.9  # slot collisions can cost ~(k-1)/2S
-        np.testing.assert_allclose(
-            np.asarray(fv)[:, 0], np.asarray(ev)[:, 0], atol=1e-2
-        )  # top-1 always survives
-
-    def test_count_masking(self, rng):
-        db, q = unit(rng, 2048, 128), unit(rng, 2, 128)
-        _, idx = fused_score_topk(
-            jnp.asarray(db), jnp.asarray(q), 5, count=500,
-            block_n=1024, interpret=True,
-        )
-        assert np.asarray(idx).max() < 500
-
-    def test_int8_matches_exact(self, rng):
-        db, q = unit(rng, 2048, 128), unit(rng, 4, 128)
-        db8, scales = quantize_rows_int8(jnp.asarray(db))
-        fv, fi = fused_score_topk_int8(
-            db8, scales, jnp.asarray(q), 10, count=2048,
-            block_n=1024, interpret=True,
-        )
-        ev, ei = exact_topk(jnp.asarray(q @ db.T), 10)
-        fi, ei = np.asarray(fi), np.asarray(ei)
-        recall = np.mean([len(set(fi[i]) & set(ei[i])) / 10 for i in range(4)])
-        assert recall >= 0.8  # int8 rounding + slot collisions
-
+class TestQuant:
     def test_quantize_roundtrip_error(self, rng):
         db = unit(rng, 256, 64)
         q8, scales = quantize_rows_int8(jnp.asarray(db))
         recon = np.asarray(q8, np.float32) * np.asarray(scales)[:, None]
-        err = np.abs(recon - db).max()
-        assert err <= 1.0 / 127.0  # symmetric int8 quantization bound
+        assert np.abs(recon - db).max() <= 1.0 / 127.0
 
     def test_int4_pack_roundtrip(self, rng):
-        from memex_tpu.ops.fused_topk import (
-            np_quantize_rows_int4,
-            quantize_rows_int4,
-        )
-
         db = unit(rng, 128, 64)
-        p_dev, s_dev = quantize_rows_int4(jnp.asarray(db))
         p_np, s_np = np_quantize_rows_int4(db)
         assert p_np.shape == (32, 128)  # transposed [D/2, N]
-        np.testing.assert_array_equal(np.asarray(p_dev), p_np)
-        np.testing.assert_allclose(np.asarray(s_dev), s_np, rtol=1e-6)
         # Unpack (b = 16*hi + lo signed; lo = col j, hi = col j + D/2).
         b = p_np.T.astype(np.int32)
         hi = (b + 8) >> 4
@@ -105,333 +88,292 @@ class TestFusedKernelInterpret:
         recon = np.concatenate([lo, hi], axis=1).astype(np.float32) * s_np[:, None]
         assert np.abs(recon - db).max() <= 1.0 / 7.0 + 1e-6
 
-    def test_int4_rerank_matches_exact(self, rng):
-        from memex_tpu.ops.fused_topk import (
-            fused_score_topk_int4_rerank,
-            np_quantize_rows_int4,
-            quantize_rows_int8,
-        )
-
-        db, q = unit(rng, 2048, 128), unit(rng, 4, 128)
-        db4, _ = np_quantize_rows_int4(db)
-        db8, s8 = quantize_rows_int8(jnp.asarray(db))
-        fv, fi = fused_score_topk_int4_rerank(
-            jnp.asarray(db4), s8, db8, jnp.asarray(q), 10, count=2048,
-            rerank=64, block_n=1024, interpret=True,
-        )
-        ev, ei = exact_topk(jnp.asarray(q @ db.T), 10)
-        fi, ei = np.asarray(fi), np.asarray(ei)
-        recall = np.mean([len(set(fi[i]) & set(ei[i])) / 10 for i in range(4)])
-        assert recall >= 0.8  # int4 coarse + slot collisions, int8 rerank
-        # Reranked scores are int8-exact (bf16 dot), not int4-coarse.
-        np.testing.assert_allclose(
-            np.asarray(fv)[:, 0], np.asarray(ev)[:, 0], atol=2e-2
-        )
-
-    def test_int8q_rerank_improves_on_coarse(self, rng):
-        """Reranked int8q recall >= plain int8q recall (bf16-query
-        re-score of the candidate bank, same buffer)."""
-        from memex_tpu.ops.fused_topk import (
-            fused_score_topk_int8q,
-            fused_score_topk_int8q_rerank,
-            quantize_rows_int8,
-        )
-
-        db, q = unit(rng, 2048, 128), unit(rng, 8, 128)
-        db8, s8 = quantize_rows_int8(jnp.asarray(db))
-        ev, ei = exact_topk(jnp.asarray(q @ db.T), 10)
-        ei = np.asarray(ei)
-
-        def recall(fi):
-            fi = np.asarray(fi)
-            return np.mean([len(set(fi[i]) & set(ei[i])) / 10 for i in range(8)])
-
-        _, plain = fused_score_topk_int8q(
-            db8, s8, jnp.asarray(q), 10, count=2048, block_n=1024,
-            banks=4, interpret=True,
-        )
-        vals, rr = fused_score_topk_int8q_rerank(
-            db8, s8, jnp.asarray(q), 10, count=2048, rerank=64,
-            block_n=1024, banks=4, interpret=True,
-        )
-        assert recall(rr) >= recall(plain)
-        # Reranked scores are bf16-query exact (close to true cosine).
-        np.testing.assert_allclose(
-            np.asarray(vals)[:, 0], np.asarray(ev)[:, 0], atol=2e-2
-        )
-
-    def test_int4_deferred_matches_shift_ranking(self, rng):
-        """The deferred unpack (one extraction + algebraic fold, bf16 dots)
-        ranks within bf16 noise of the two-extraction shift path — since
-        b = 16*hi + lo holds exactly in the signed byte encoding, the only
-        difference is bf16 rounding (no sign-dependent bias)."""
-        from memex_tpu.ops.fused_topk import (
-            fused_score_topk_int4_rerank,
-            np_quantize_rows_int4,
-            quantize_rows_int8,
-        )
-
-        db, q = unit(rng, 1024, 64), unit(rng, 4, 64)
-        db4, _ = np_quantize_rows_int4(db)
-        db8, s8 = quantize_rows_int8(jnp.asarray(db))
-        outs = {}
-        for deferred in (False, True):
-            vals, idx = fused_score_topk_int4_rerank(
-                jnp.asarray(db4), s8, db8, jnp.asarray(q), 5, count=1024,
-                rerank=64, block_n=512, deferred=deferred, interpret=True,
-            )
-            outs[deferred] = (np.asarray(vals), np.asarray(idx))
-        for qi in range(4):
-            a, b = set(outs[False][1][qi]), set(outs[True][1][qi])
-            # bf16 fold noise can flip ties at the candidate-bank margin;
-            # the top-5 must agree nearly everywhere now the bias is gone.
-            assert len(a & b) >= 4, (qi, a, b)
-        shared = set(outs[False][1][0]) & set(outs[True][1][0])
-        va = {i: v for v, i in zip(outs[False][0][0], outs[False][1][0])}
-        vb = {i: v for v, i in zip(outs[True][0][0], outs[True][1][0])}
-        for i in shared:
-            np.testing.assert_allclose(va[i], vb[i], atol=1e-5)
-
-    def test_int4_deferred_coarse_unbiased(self, rng):
-        """Regression (round-1 advisor): the old nibble-packed byte made the
-        deferred coarse score gain +q_hi per column with lo<0 — a systematic
-        bias far above bf16 noise. With b = 16*hi + lo signed, deferred
-        coarse scores must match the exact int4 dot to bf16 tolerance."""
-        from memex_tpu.ops.fused_topk import _int4q_candidates, np_quantize_rows_int4
-
-        db, q = unit(rng, 512, 64), unit(rng, 4, 64)
-        db4, s4 = np_quantize_rows_int4(db)
-        count = jnp.full((1,), 512, jnp.int32)
-        # Exact int4 reference scores, via integer unpack + quantized query.
-        b = db4.T.astype(np.int32)
-        hi = (b + 8) >> 4
-        lo = b - 16 * hi
-        codes = np.concatenate([lo, hi], axis=1).astype(np.float32)  # [N, D]
-        qa = np.abs(q).max(axis=1)
-        qs = np.maximum(qa, 1e-12) / 127.0
-        q8 = np.clip(np.round(q / qs[:, None]), -127, 127).astype(np.float32)
-        want = (q8 @ codes.T) * s4[None, :]  # [Q, N] (per-query scale omitted
-        # by the kernel too — ranking is query-scale invariant)
-        for deferred in (False, True):
-            vals, idx = _int4q_candidates(
-                jnp.asarray(db4), jnp.asarray(s4), jnp.asarray(q), count,
-                block_n=512, banks=4, deferred=deferred, interpret=True,
-            )
-            vals, idx = np.asarray(vals), np.asarray(idx)
-            # Compare every candidate-bank score against the exact value at
-            # its reported index: relative error must be bf16-level (shift
-            # path is integer-exact).
-            sel = want[np.arange(4)[:, None], idx]
-            scale = np.abs(want).max()
-            err = (vals - sel) / scale
-            tol = 1e-6 if not deferred else 3e-2
-            assert np.abs(err).max() <= tol, (deferred, np.abs(err).max())
-            # Unbiasedness is the actual regression: the old nibble packing
-            # gave deferred a +q_hi shift per lo<0 column (~half of D/2
-            # columns — an error orders of magnitude above this bound).
-            assert abs(err.mean()) <= 2e-3, (deferred, err.mean())
-
-    def test_int4_rerank_count_and_alive_mask(self, rng):
-        from memex_tpu.ops.fused_topk import (
-            fused_score_topk_int4_rerank,
-            np_quantize_rows_int4,
-            quantize_rows_int8,
-        )
-
-        db, q = unit(rng, 1024, 64), unit(rng, 2, 64)
-        db4, _ = np_quantize_rows_int4(db)
-        db8, s8 = quantize_rows_int8(jnp.asarray(db))
-        alive = np.ones((1024,), np.float32)
-        alive[:50] = 0.0  # tombstone the first 50 rows
-        _, fi = fused_score_topk_int4_rerank(
-            jnp.asarray(db4), s8, db8, jnp.asarray(q), 5, count=500,
-            alive=jnp.asarray(alive), rerank=64, block_n=512, interpret=True,
-        )
-        fi = np.asarray(fi)
-        assert fi.max() < 500 and fi.min() >= 50
-
-
-class TestIvfProbeKernel:
-    """Pallas IVF probe-scan (ops/ivf_scan.py) vs the XLA scan path."""
-
-    @pytest.mark.parametrize("dtype", ["float32", "int8"])
-    def test_matches_xla_path(self, dtype):
-        import jax.numpy as jnp
-
-        from memex_tpu.index.ivf import IVFIndex, _ivf_search, _ivf_search_fused
-
-        rng = np.random.default_rng(11)
-        d, n, k, nprobe = 48, 4096, 10, 12
-        centers = unit(rng, 16, d)
-        db = centers[rng.integers(0, 16, n)] + 0.05 * rng.standard_normal(
-            (n, d)
-        ).astype(np.float32)
-        db /= np.linalg.norm(db, axis=1, keepdims=True)
-        idx = IVFIndex(dim=d, n_clusters=32, nprobe=nprobe, dtype=dtype,
-                       use_fused=False)
-        idx.build(db, [f"v{i}" for i in range(n)])
-        assert idx.data.shape[1] % 256 == 0  # kernel bucket alignment
-
-        qs = jnp.asarray(unit(rng, 4, d))
-        v1, c1, s1 = _ivf_search(idx.centroids, idx.data, idx.rscales,
-                                 idx.sizes, qs, nprobe, k)
-        v2, c2, s2 = _ivf_search_fused(idx.centroids, idx.data, idx.rscales,
-                                       idx.sizes, qs, nprobe, k,
-                                       interpret=True)
-        v1, v2 = np.asarray(v1), np.asarray(v2)
-        g1 = np.asarray(c1) * idx.data.shape[1] + np.asarray(s1)
-        g2 = np.asarray(c2) * idx.data.shape[1] + np.asarray(s2)
-        for q in range(4):
-            a, b = set(g1[q].tolist()), set(g2[q].tolist())
-            # slot banks are approximate: expected loss ~(k-1)/(2S) ~ 2%
-            overlap = len(a & b) / k
-            assert overlap >= 0.8, (q, sorted(a), sorted(b))
-            # common rows agree within bf16 rounding (the kernel's dot is
-            # bf16 even for f32 storage; the XLA f32 branch is exact)
-            mv = dict(zip(g1[q].tolist(), v1[q]))
-            ev = dict(zip(g2[q].tolist(), v2[q]))
-            for r in a & b:
-                assert abs(mv[r] - ev[r]) < 2e-3
-        # top-1 must never be lost (it always wins its slot)
-        assert np.array_equal(g1[:, 0], g2[:, 0])
-
-
-class TestIvfBatchKernel:
-    """Batch-union probe scan (ops/ivf_batch.py) vs the strict XLA path."""
-
-    def _index(self, rng, dtype, n=4096, d=64, C=16):
-        from memex_tpu.index.ivf import IVFIndex
-
-        centers = unit(rng, 8, d)
-        db = centers[rng.integers(0, 8, n)] + 0.07 * rng.standard_normal(
-            (n, d)).astype(np.float32)
-        db /= np.linalg.norm(db, axis=1, keepdims=True)
-        idx = IVFIndex(dim=d, n_clusters=C, nprobe=6, dtype=dtype,
-                       use_fused=False)
-        idx.build(db, [f"v{i}" for i in range(n)])
-        assert idx.data.shape[1] % 512 == 0  # batch-kernel bucket alignment
-        return idx, db
-
     def test_route_union_dedupes(self, rng):
-        from memex_tpu.ops.ivf_batch import route_union
-
-        idx, _ = self._index(rng, "float32")
+        cents = jnp.asarray(unit(rng, 16, 64))
         qs = jnp.asarray(unit(rng, 8, 64))
-        clist, nact = route_union(idx.centroids, qs, 6)
+        clist, nact = route_union(cents, qs, 6)
         clist, nact = np.asarray(clist), int(np.asarray(nact)[0])
-        # actives are unique, ascending, and exactly the union of probes
-        qc = np.asarray(qs) @ np.asarray(idx.centroids).T
+        qc = np.asarray(qs) @ np.asarray(cents).T
         want = set()
         for q in range(8):
             want.update(np.argsort(-qc[q])[:6].tolist())
         assert nact == len(want)
         assert set(clist[:nact].tolist()) == want
         assert np.all(np.diff(clist[:nact]) > 0)
-        # full permutation of cluster ids (inactives follow)
-        assert sorted(clist.tolist()) == list(range(idx.C))
+        assert sorted(clist.tolist()) == list(range(16))
 
-    def test_chunk_walk_matches_python(self, rng):
-        """walk[t] = cid*256 + chunk for exactly the flattened
-        (active cluster, chunk) sequence, incl. size-0 actives (one masked
-        chunk), exact-multiple sizes, and n_active == 0."""
-        from memex_tpu.ops.ivf_batch import _chunk_walk
 
-        C, M, S = 8, 2048, 512
-        sizes = np.array([0, 512, 513, 1024, 1, 2047, 2048, 100], np.int32)
+class TestFlatSearch:
+    """FlatIndex through the kernel (interpreted) and the XLA scan."""
 
-        def py_walk(clist, n_act):
-            out = []
-            for p in range(n_act):
-                cid = int(clist[p])
-                for j in range(max(1, -(-int(sizes[cid]) // S))):
-                    out.append(cid * 256 + j)
-            return out
+    @pytest.mark.parametrize("impl", IMPLS)
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "int4"])
+    def test_recall_vs_oracle(self, rng, dtype, impl):
+        db, qs = clustered(rng, 3000, 64), unit(rng, 8, 64)
+        idx = flat(dtype, impl)
+        idx.add(db, [str(i) for i in range(len(db))])
+        exact = np.argsort(-(qs @ db.T), axis=1)[:, :10]
+        got = [[int(s) for s, _ in h] for h in idx.search(qs, 10)]
+        assert recall(got, exact) >= 0.9
 
-        for clist, n_act in [
-            (np.arange(C, dtype=np.int32), 8),        # all active
-            (np.array([2, 5, 6, 0, 1, 3, 4, 7], np.int32), 3),
-            (np.arange(C, dtype=np.int32), 0),        # nothing active
-            (np.array([0, 4, 1, 2, 3, 5, 6, 7], np.int32), 2),  # size-0 first
-        ]:
-            walk, n_chunks = _chunk_walk(
-                jnp.asarray(sizes), jnp.asarray(clist),
-                jnp.asarray([n_act], jnp.int32), M, S)
-            want = py_walk(clist, n_act)
-            n = int(np.asarray(n_chunks)[0])
-            assert n == len(want)
-            assert np.asarray(walk)[:n].tolist() == want
-            assert walk.shape == (C * (M // S),)
+    @pytest.mark.parametrize("impl", IMPLS)
+    def test_unfilled_capacity_is_never_returned(self, rng, impl):
+        idx = flat("float32", impl, capacity=8192)
+        db = unit(rng, 300, 64)
+        idx.add(db, [str(i) for i in range(300)])
+        hits = idx.search(unit(rng, 4, 64), 50)
+        assert all(len(h) == 50 for h in hits)
+        assert all(0 <= int(s) < 300 for h in hits for s, _ in h)
 
+    @pytest.mark.parametrize("impl", IMPLS)
     @pytest.mark.parametrize("dtype", ["float32", "int8"])
-    def test_matches_strict_xla(self, rng, dtype):
-        from memex_tpu.index.ivf import IVFIndex, _ivf_search  # noqa: F401
-        from memex_tpu.ops.ivf_batch import ivf_batch_search
+    def test_tombstones_never_returned(self, rng, dtype, impl):
+        db = unit(rng, 2048, 64)
+        idx = flat(dtype, impl)
+        idx.add(db, [str(i) for i in range(2048)])
+        q = db[:3]
+        dead = [str(i) for i in range(3)]
+        dead += [str(i) for i in np.argsort(-(q @ db.T), axis=1)[:, 1:40].ravel()]
+        idx.delete(sorted(set(dead))[:400])
+        gone = set(sorted(set(dead))[:400])
+        for h in idx.search(q, 10):
+            assert len(h) == 10 and not {s for s, _ in h} & gone
 
-        idx, _ = self._index(rng, dtype)
-        k, nprobe = 10, 6
+    @pytest.mark.parametrize("impl", IMPLS)
+    @pytest.mark.parametrize("q_n", [1, 17])
+    def test_query_batch_padding(self, rng, impl, q_n):
+        db = unit(rng, 2048, 64)
+        idx = flat("int8", impl)
+        idx.add(db, [str(i) for i in range(2048)])
+        hits = idx.search(db[:q_n], 5)
+        assert len(hits) == q_n
+        assert [h[0][0] for h in hits] == [str(i) for i in range(q_n)]
+
+    @pytest.mark.parametrize("impl", IMPLS)
+    def test_refine_rerank_gives_true_cosines(self, rng, impl):
+        db = clustered(rng, 2048, 64)
+        idx = flat("int8", impl, refine=True)
+        idx.add(db, [str(i) for i in range(2048)])
+        qs = unit(rng, 4, 64)
+        for qi, hits in enumerate(idx.search(qs, 10)):
+            for sid, score in hits:
+                assert abs(score - float(qs[qi] @ db[int(sid)])) < 1e-3
+            want = np.argsort(-(qs[qi] @ db.T))[:10]
+            assert recall([[int(s) for s, _ in hits]], [want]) >= 0.9
+
+    @pytest.mark.parametrize("impl", IMPLS)
+    def test_grow_keeps_rows_searchable(self, rng, impl):
+        idx = flat("bfloat16", impl)
+        db = unit(rng, 5000, 64)  # > MIN_CAPACITY: two capacity doublings
+        idx.add(db[:1000], [str(i) for i in range(1000)])
+        idx.add(db[1000:], [str(i) for i in range(1000, 5000)])
+        assert idx.capacity >= 5000
+        hits = idx.search(db[[10, 4990]], 1)
+        assert [h[0][0] for h in hits] == ["10", "4990"]
+
+
+class TestKernelVsReference:
+    """The kernel against its plain-JAX twin (same arithmetic)."""
+
+    @pytest.mark.parametrize("mode", ["bf16", "int8q"])
+    def test_scores_match_reference(self, rng, mode):
+        db = clustered(rng, 4096, 128)
+        qs = jnp.asarray(unit(rng, 8, 128))
+        if mode == "int8q":
+            buf, sc = quantize_rows_int8(jnp.asarray(db))
+        else:
+            buf, sc = jnp.asarray(db), None
+        kv, ki = scan_topk(buf, qs, sc, None, 4096, 10, mode=mode,
+                           interpret=True)
+        rv, ri = reference_topk(buf, qs, sc, None, 4096, 4096, mode=mode)
+        ref = np.zeros((8, 4096), np.float32)
+        np.put_along_axis(ref, np.asarray(ri), np.asarray(rv), axis=1)
+        got = np.take_along_axis(ref, np.asarray(ki), axis=1)
+        if mode == "int8q":  # the int32 dot is exact: float rounding only
+            np.testing.assert_allclose(np.asarray(kv), got, rtol=1e-5)
+        else:  # bf16 inputs, f32 sums in another order
+            np.testing.assert_allclose(np.asarray(kv), got, atol=1e-3)
+
+    @pytest.mark.parametrize("mode", ["bf16", "int8q"])
+    def test_candidates_cover_reference_topk(self, rng, mode):
+        db = clustered(rng, 8192, 64)
+        qs = jnp.asarray(unit(rng, 16, 64))
+        if mode == "int8q":
+            buf, sc = quantize_rows_int8(jnp.asarray(db))
+        else:
+            buf, sc = jnp.asarray(db), None
+        _, ki = scan_topk(buf, qs, sc, None, 8192, 10, mode=mode,
+                          interpret=True)
+        _, ri = reference_topk(buf, qs, sc, None, 8192, 10, mode=mode)
+        assert recall(np.asarray(ki), np.asarray(ri)) >= 0.99
+
+    def test_masked_contraction_piece(self, rng):
+        """A width that is not a multiple of 16 is scanned as one padded
+        power-of-two piece with masked loads."""
+        db = unit(rng, 2048, 40)
+        qs = jnp.asarray(db[:4])
+        kv, ki = scan_topk(jnp.asarray(db), qs, None, None, 2048, 5,
+                           mode="bf16", interpret=True)
+        rv, ri = reference_topk(jnp.asarray(db), qs, None, None, 2048, 5,
+                                mode="bf16")
+        np.testing.assert_array_equal(np.asarray(ki)[:, 0], np.arange(4))
+        np.testing.assert_allclose(np.asarray(kv), np.asarray(rv), atol=1e-3)
+
+    def test_candidate_bank_shape(self, rng):
+        buf = jnp.asarray(unit(rng, 4096, 64))
+        vals, idx = scan_candidates(buf, jnp.asarray(unit(rng, 3, 64)), None,
+                                    None, 1000, mode="bf16", interpret=True)
+        s, _ = chunk_plan(64, 4)
+        assert vals.shape == idx.shape == (3, n_slices(1, 4096, s) * s)
+        live = np.asarray(vals) > -1e29
+        assert np.asarray(idx)[live].max() < 1000
+
+    def test_alive_mask_inside_kernel(self, rng):
+        db = unit(rng, 2048, 64)
+        alive = np.ones(2048, np.float32)
+        alive[:64] = 0
+        _, ki = scan_topk(jnp.asarray(db), jnp.asarray(db[:8]), None,
+                          jnp.asarray(alive), 2048, 20, mode="bf16",
+                          interpret=True)
+        assert np.asarray(ki).min() >= 64
+
+    def test_device_search_rerank_matches_xla(self, rng):
+        db = clustered(rng, 2048, 64)
+        buf, sc = quantize_rows_int8(jnp.asarray(db))
         qs = jnp.asarray(unit(rng, 4, 64))
-        v1, c1, s1 = _ivf_search(idx.centroids, idx.data, idx.rscales,
-                                 idx.sizes, qs, nprobe, k)
-        v2, c2, s2 = ivf_batch_search(idx.centroids, idx.data, idx.rscales,
-                                      idx.sizes, qs, nprobe, k,
-                                      interpret=True)
-        M = idx.data.shape[1]
-        g1 = np.asarray(c1) * M + np.asarray(s1)
-        g2 = np.asarray(c2) * M + np.asarray(s2)
-        v1, v2 = np.asarray(v1), np.asarray(v2)
-        for q in range(4):
-            a, b = set(g1[q].tolist()), set(g2[q].tolist())
-            # union semantics can only ADD candidates; slot banks may drop
-            # ~(k-1)/(2S); require high overlap and identical top-1
-            assert len(a & b) / k >= 0.8, (q, sorted(a), sorted(b))
-            mv = dict(zip(g1[q].tolist(), v1[q]))
-            ev = dict(zip(g2[q].tolist(), v2[q]))
-            for r in a & b:
-                assert abs(mv[r] - ev[r]) < 2e-3
-        assert np.array_equal(g1[:, 0], g2[:, 0])
+        out = [device_search(buf, sc, None, 2048, qs, None, None, k=5,
+                             k_ret=64, kernel=kern, mode="int8q",
+                             interpret=kern)
+               for kern in (True, False)]
+        assert recall(np.asarray(out[0][1]), np.asarray(out[1][1])) >= 0.95
 
-    def test_union_recall_geq_strict(self, rng):
-        """Batch-union results, mapped through the full index path, are at
-        least as good as strict per-query IVF against the exact oracle."""
-        from memex_tpu.index.ivf import IVFIndex, _ivf_search
-        from memex_tpu.ops.ivf_batch import ivf_batch_search
+    def test_sharded_kernel_matches_xla(self, rng):
+        from jax.sharding import Mesh
 
-        idx, db = self._index(rng, "float32")
-        k, nprobe, Q = 10, 6, 8
-        qs = unit(rng, Q, 64)
-        exact = np.argsort(-(qs @ db.T), axis=1)[:, :k]
-        M = idx.data.shape[1]
-        rowids = idx._rowids_host()
+        from memex_tpu.index.sharded import ShardedFlatIndex
 
-        def recall(cl, sl):
-            got = 0
-            for q in range(Q):
-                rows = {int(rowids[c, s]) for c, s in
-                        zip(np.asarray(cl)[q], np.asarray(sl)[q])
-                        if rowids[c, s] >= 0}
-                got += len(rows & set(exact[q].tolist()))
-            return got / (Q * k)
+        mesh = Mesh(np.array(jax.devices()[:2]), ("shard",))
+        db = unit(rng, 1500, 32)
+        res = []
+        for interp in (True, False):
+            idx = ShardedFlatIndex(dim=32, mesh=mesh, capacity_per_shard=1024,
+                                   dtype="int8")
+            idx._interpret = interp
+            idx.add(db, [str(i) for i in range(1500)])
+            res.append(idx.search(db[:4], 5))
+        for a, b in zip(*res):
+            assert a[0][0] == b[0][0]
+            assert len({s for s, _ in a} & {s for s, _ in b}) >= 4
 
-        _, c1, s1 = _ivf_search(idx.centroids, idx.data, idx.rscales,
-                                idx.sizes, jnp.asarray(qs), nprobe, k)
-        _, c2, s2 = ivf_batch_search(idx.centroids, idx.data, idx.rscales,
-                                     idx.sizes, jnp.asarray(qs), nprobe, k,
-                                     interpret=True)
-        assert recall(c2, s2) >= recall(c1, s1) - 0.05
 
-    def test_single_query_equals_strict(self, rng):
-        """Q=1: the union IS the query's own probe set — identical
-        semantics to strict IVF."""
-        from memex_tpu.index.ivf import IVFIndex, _ivf_search
-        from memex_tpu.ops.ivf_batch import ivf_batch_search
+class TestKernelPlan:
+    """Block geometry: pure Python, no compilation."""
 
-        idx, _ = self._index(rng, "int8")
-        qs = jnp.asarray(unit(rng, 1, 64))
-        v1, c1, s1 = _ivf_search(idx.centroids, idx.data, idx.rscales,
-                                 idx.sizes, qs, 6, 5)
-        v2, c2, s2 = ivf_batch_search(idx.centroids, idx.data, idx.rscales,
-                                      idx.sizes, qs, 6, 5, interpret=True)
-        g1 = np.asarray(c1) * idx.data.shape[1] + np.asarray(s1)
-        g2 = np.asarray(c2) * idx.data.shape[1] + np.asarray(s2)
-        assert len(set(g1[0]) & set(g2[0])) >= 4
-        assert g1[0, 0] == g2[0, 0]
+    @pytest.mark.parametrize("count", [0, 1, 127, 128, 1000, 4096])
+    def test_slice_bounds_cover_live_prefix(self, count):
+        p, s = 8, 128
+        b = np.asarray(slice_bounds(count, p, s))
+        assert b[0] == 0 and b[-1] == count and len(b) == p + 1
+        assert np.all(np.diff(b) >= 0)
+        assert np.all(b[:-1][np.diff(b) > 0] % s == 0)  # slices start on chunks
+
+    @pytest.mark.parametrize("d", [384, 768, 1024])
+    @pytest.mark.parametrize("itemsize", [1, 2, 4])
+    def test_chunk_plan_fits_shared_memory(self, d, itemsize):
+        s, stages = chunk_plan(d, itemsize)
+        assert s & (s - 1) == 0 and 16 <= s <= 128
+        assert 1 <= stages <= 3
+        assert stages * s * d * itemsize <= _SMEM or s == 16
+
+    @pytest.mark.parametrize("q_tiles", [1, 8])
+    def test_n_slices_fills_card_within_bank(self, q_tiles):
+        p = n_slices(q_tiles, 1 << 21, 128)
+        assert p * 128 <= BANK
+        assert p * q_tiles >= 132 or p == BANK // 128
+
+
+class TestSelection:
+    """ops/scan_topk.use_kernel: the one choice of scan implementation."""
+
+    @pytest.mark.parametrize("backend,mode,k,want", [
+        ("gpu", "int8q", 10, True),
+        ("gpu", "bf16", MAX_K, True),
+        ("gpu", "bf16", MAX_K + 1, False),
+        ("gpu", "exact", 10, False),
+        ("cpu", "int8q", 10, False),
+        ("cpu", "bf16", 10, False),
+    ])
+    def test_use_kernel(self, backend, mode, k, want):
+        assert use_kernel(mode, k, backend) is want
+
+    def test_default_backend_here_is_xla(self):
+        assert use_kernel("int8q", 10) is False  # tests run on the CPU
+
+    @pytest.mark.parametrize("dtype,qq,prec,want", [
+        ("float32", True, "default", "bf16"),
+        ("float32", True, "highest", "exact"),
+        ("int8", True, "default", "int8q"),
+        ("int4", False, "default", "bf16"),
+    ])
+    def test_scan_mode(self, dtype, qq, prec, want):
+        assert scan_mode(dtype, qq, prec) == want
+
+    @pytest.mark.parametrize("opt", ["use_fused=1", "scan_int4=1",
+                                     "block_n=1024"])
+    def test_removed_uri_option_is_named(self, tmp_path, opt):
+        from memex_tpu.store import get_vector_storage
+
+        name = opt.split("=")[0]
+        with pytest.raises(ValueError, match=name):
+            get_vector_storage(f"tpu+ivf://{tmp_path}/v?{opt}", "c", dim=16)
+
+
+class TestPrecisionPins:
+    """f32 products that are meant to be exact name HIGHEST precision:
+    on a GPU a default-precision f32 dot may run in TF32."""
+
+    @staticmethod
+    def _hlo(fn, *args):
+        return jax.jit(fn).lower(*args).as_text()
+
+    def test_ivf_routing_and_exact_scan(self):
+        from memex_tpu.index.ivf import _ivf_search
+
+        C, M, D = 4, 16, 8
+        args = (jnp.zeros((C, D)), jnp.zeros((C, M, D)), jnp.ones((C, M)),
+                jnp.full((C,), M, jnp.int32), jnp.zeros((2, D)),
+                jnp.float32(4.0))
+        hlo = self._hlo(lambda *a: _ivf_search(*a, nprobe=2, k=3), *args)
+        dots = [ln for ln in hlo.splitlines() if "dot_general" in ln]
+        assert len(dots) >= 2
+        assert all("HIGHEST" in ln for ln in dots), dots
+
+    def test_sharded_ivf_routing_and_exact_scan(self):
+        from jax.sharding import Mesh
+
+        from memex_tpu.index.sharded_ivf import make_ivf_search_fn
+
+        mesh = Mesh(np.array(jax.devices()[:2]), ("shard",))
+        C, M, D = 4, 16, 8
+        fn = make_ivf_search_fn(mesh, "shard", C // 2, M, nprobe=2, kk=3)
+        hlo = fn.lower(jnp.zeros((C, D)), jnp.zeros((C, M, D)),
+                       jnp.ones((C, M)), jnp.full((C,), M, jnp.int32),
+                       jnp.zeros((2, D)), jnp.float32(4.0)).as_text()
+        dots = [ln for ln in hlo.splitlines() if "dot_general" in ln]
+        assert len(dots) >= 2
+        assert all("HIGHEST" in ln for ln in dots), dots
+
+    def test_ivf_margin_masks_trailing_probes(self):
+        from memex_tpu.index.ivf import _ivf_search
+
+        D, M = 4, 8
+        cents = jnp.eye(4, D)
+        data = jnp.broadcast_to(jnp.eye(4, D)[:, None, :], (4, M, D))
+        q = jnp.asarray([[1.0, 0.1, 0.0, 0.0]])
+        q = q / jnp.linalg.norm(q)
+        sizes = jnp.full((4,), M, jnp.int32)
+        args = (cents, data, jnp.ones((4, M)), sizes, q)
+        _, cl_all, _ = _ivf_search(*args, jnp.float32(4.0), nprobe=2, k=2 * M)
+        _, cl_cut, _ = _ivf_search(*args, jnp.float32(0.5), nprobe=2, k=M)
+        assert set(np.asarray(cl_all).ravel().tolist()) == {0, 1}
+        assert set(np.asarray(cl_cut).ravel().tolist()) == {0}

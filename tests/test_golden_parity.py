@@ -28,13 +28,13 @@ from memex_tpu.text.tokenizer import WordPieceTokenizer
 
 SENTENCES = [
     "The quick brown fox jumps over the lazy dog.",
-    "TPU chips multiply matrices fast!",
+    "GPU chips multiply matrices fast!",
     "Semantic search finds meaning, not keywords.",
     "hello world, this is a golden parity test.",
 ]
 
 _WORDS = (
-    "the quick brown fox jump jumps over lazy dog tpu chip chips multiply "
+    "the quick brown fox jump jumps over lazy dog gpu chip chips multiply "
     "multiplies matrice matrices fast semantic search find finds meaning not "
     "keyword keywords hello world this is a golden parity test of sentence "
     "embedding model transformer mean pooling"

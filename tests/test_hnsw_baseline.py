@@ -5,7 +5,7 @@ reference").
 The reference serves hnsw_rs at M=16, ef_construction=200, ef_search=32
 (/root/reference/lib/libmemex/src/storage/local.rs:101,76). This builds
 the repo's own native HNSW (native/hnsw/hnsw.cpp) at EXACTLY those
-parameters on the same corpus + queries as the TPU tiers, scores both
+parameters on the same corpus + queries as the device tiers, scores both
 against the same exact oracle, and asserts tier recall >= HNSW recall —
 the target as written, hermetically (CPU backend, interpret-mode
 kernels, no network).
@@ -39,7 +39,7 @@ def _flat_recall(corpus, queries, exact, dtype, **kw) -> float:
 
 def _ivf_recall(corpus, queries, exact, n_clusters, nprobe) -> float:
     idx = IVFIndex(dim=corpus.shape[1], n_clusters=n_clusters,
-                   nprobe=nprobe, dtype="int8", use_fused=False)
+                   nprobe=nprobe, dtype="int8")
     idx.build(corpus, [f"r{i}" for i in range(corpus.shape[0])])
     # The serving configuration: jointly calibrated (nprobe, margin)
     # against the same floor the URI option `recall_target` would use.
@@ -126,7 +126,7 @@ def test_every_tier_beats_hnsw_100k():
 
     def ivf_ids(n_clusters, nprobe):
         idx = IVFIndex(dim=corpus.shape[1], n_clusters=n_clusters,
-                       nprobe=nprobe, dtype="int8", use_fused=False)
+                       nprobe=nprobe, dtype="int8")
         idx.build(corpus, [f"r{i}" for i in range(corpus.shape[0])])
         idx.calibrate_operating_point(target_recall=0.95)
         return [[int(s[1:]) for s, _ in row] for row in idx.search(queries, K)]

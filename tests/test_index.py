@@ -178,7 +178,7 @@ class TestIVFIndex:
         host-side build and keeps every row reachable (bucket + spill)."""
         import jax.numpy as jnp
 
-        from memex_tpu.ops.fused_topk import quantize_rows_int8
+        from memex_tpu.ops.quant import quantize_rows_int8
 
         d, n, q_n, k = 48, 4096, 8, 10
         centers = unit(rng, 32, d)
@@ -189,8 +189,7 @@ class TestIVFIndex:
         ids = [f"p{i}" for i in range(n)]
         vq, sc = quantize_rows_int8(jnp.asarray(db))
 
-        dev = IVFIndex(dim=d, n_clusters=64, nprobe=24, dtype="int8",
-                       use_fused=False)
+        dev = IVFIndex(dim=d, n_clusters=64, nprobe=24, dtype="int8")
         dev.build_device(vq, sc, ids)
         assert dev.count == n
         assert int(np.asarray(dev.sizes).sum()) + dev.spill.count == n
@@ -206,8 +205,7 @@ class TestIVFIndex:
         seen |= set(dev.spill.ids)
         assert seen == set(ids)
 
-        host = IVFIndex(dim=d, n_clusters=64, nprobe=24, dtype="int8",
-                        use_fused=False)
+        host = IVFIndex(dim=d, n_clusters=64, nprobe=24, dtype="int8")
         host.build(db, ids)
         expect = oracle_topk(db, qs, k)
         for idx in (dev, host):
@@ -285,26 +283,22 @@ class TestFlatIndexDtypes:
 
 
 def test_flat_index_int4_fused_interpret(rng):
-    """int4 FlatIndex through the fused coarse+rerank path (interpret mode)
-    matches the XLA fallback's results."""
+    """int4 FlatIndex through the fused kernel (interpret mode, scanning
+    the int8 copy) matches the XLA path's results."""
     d, n, k = 64, 2048, 5
     db = unit(rng, n, d)
-    qs = unit(rng, 4, d)
+    qs = db[:4] + 0.3 * unit(rng, 4, d)
+    qs /= np.linalg.norm(qs, axis=1, keepdims=True)
     ids = [f"v{i}" for i in range(n)]
-    from memex_tpu.index import flat as flat_mod
-
-    idx = FlatIndex(dim=d, dtype="int4", use_fused=False)
+    idx = FlatIndex(dim=d, dtype="int4")
     idx.add(db, ids)
     xla = idx.search(qs, k)
-    fused = flat_mod._search_masked_fused_int4(
-        idx.buf, idx.scales, idx.buf8, idx.alive, idx.count,
-        np.asarray(qs, np.float32), k, block_n=512, rerank=64, interpret=True,
-    )
-    fvals, fidx = np.asarray(fused[0]), np.asarray(fused[1])
+    idx._interpret = True
+    fused = idx.search(qs, k)
     for qi in range(4):
         x_ids = [s for s, _ in xla[qi]]
-        f_ids = [idx.ids[r] for r in fidx[qi] if fvals[qi][0] > -1e29]
-        # top-1 agrees; overlap is high (rerank is int8-exact on candidates)
+        f_ids = [s for s, _ in fused[qi]]
+        # top-1 agrees; overlap is high (int8 vs bf16 query arithmetic)
         assert x_ids[0] == f_ids[0]
         assert len(set(x_ids) & set(f_ids)) >= k - 1
 
@@ -318,8 +312,8 @@ class TestAdversarialDeletes:
     def test_flat_fused_recall_with_topk_deleted(self, rng, dtype):
         d, n, k = 64, 2048, 10
         db, q = unit(rng, n, d), unit(rng, 1, d)
-        idx = FlatIndex(dim=d, dtype=dtype, use_fused=True)
-        idx._interpret = True  # fused kernels run hermetically
+        idx = FlatIndex(dim=d, dtype=dtype)
+        idx._interpret = True  # the fused kernel runs hermetically
         idx.add(db, [f"v{i}" for i in range(n)])
         # Tombstone the query's ENTIRE top-130 (beyond the 128-wide bank)
         # plus scattered extras: ~17% dead, below the 25% compaction bar.
@@ -347,7 +341,7 @@ class TestAdversarialDeletes:
         d, n, k = 64, 2048, 10
         db, q = unit(rng, n, d), unit(rng, 1, d)
         idx = ShardedFlatIndex(dim=d, mesh=mesh, capacity_per_shard=512,
-                               dtype="int8", use_fused=True)
+                               dtype="int8")
         idx._interpret = True
         idx.add(db, [f"v{i}" for i in range(n)])
         order = np.argsort(-(q @ db.T))[0]
@@ -524,7 +518,7 @@ def test_sharded_compaction(rng):
     d, n = 32, 200
     db = unit(rng, n, d)
     ids = [f"c{i}" for i in range(n)]
-    idx = ShardedFlatIndex(dim=d, mesh=mesh, capacity_per_shard=1024, use_fused=False)
+    idx = ShardedFlatIndex(dim=d, mesh=mesh, capacity_per_shard=1024)
     idx.add(db, ids)
     fill_before = sum(idx.counts)
     idx.delete(ids[:120])  # >25% dead -> auto-compact

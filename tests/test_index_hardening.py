@@ -50,7 +50,7 @@ def test_ivf_rebuild_below_cluster_floor_keeps_deletes(rng):
     d, n, C = 16, 2000, 64
     db = unit(rng, n, d)
     ids = [f"r{i}" for i in range(n)]
-    idx = IVFIndex(dim=d, n_clusters=C, nprobe=C, use_fused=False)
+    idx = IVFIndex(dim=d, n_clusters=C, nprobe=C)
     idx.build(db, ids)
     assert idx.data is not None
     # Delete 1800 -> live 200 < C*4 = 256: the host rebuild path must
@@ -74,7 +74,7 @@ def test_ivf_store_churn_rebuild_below_floor(rng, tmp_path):
 
     d, n, C = 16, 1500, 64
     store = TpuIVFStore(str(tmp_path), "floor", dim=d, n_clusters=C,
-                        nprobe=C, use_fused=False)
+                        nprobe=C)
     vecs = unit(rng, n, d)
     store.build([VectorData(id=f"c{i}", document_id="doc", text="",
                             vector=vecs[i], segment_id=i) for i in range(n)])
@@ -91,7 +91,7 @@ def test_ivf_store_churn_rebuild_below_floor(rng, tmp_path):
 
 def test_flat_intra_batch_duplicate_is_deletable(rng):
     d = 16
-    idx = FlatIndex(dim=d, use_fused=False)
+    idx = FlatIndex(dim=d)
     v = unit(rng, 3, d)
     idx.add(np.stack([v[0], v[1], v[2]]), ["a", "a", "b"])
     assert idx.count == 2  # one live row per id
@@ -102,8 +102,7 @@ def test_flat_intra_batch_duplicate_is_deletable(rng):
 
 def test_sharded_intra_batch_duplicate_is_deletable(rng, mesh):
     d = 16
-    idx = ShardedFlatIndex(dim=d, mesh=mesh, capacity_per_shard=64,
-                           use_fused=False)
+    idx = ShardedFlatIndex(dim=d, mesh=mesh, capacity_per_shard=64)
     v = unit(rng, 3, d)
     idx.add(np.stack([v[0], v[1], v[2]]), ["a", "a", "b"])
     assert idx.count == 2
@@ -118,7 +117,7 @@ def test_sharded_intra_batch_duplicate_is_deletable(rng, mesh):
 def test_sharded_index_grows_past_capacity(rng, mesh):
     d = 16
     idx = ShardedFlatIndex(dim=d, mesh=mesh, capacity_per_shard=64,
-                           dtype="int8", use_fused=False)
+                           dtype="int8")
     total_cap = idx.P * idx.cap
     n = total_cap + 200  # beyond the fixed capacity: raised before the fix
     db = unit(rng, n, d)
@@ -144,8 +143,7 @@ def test_sharded_ivf_concentrated_deletes_still_return_live(rng, mesh):
     q = unit(rng, 1, d)
     db[:600] = q + 0.05 * rng.standard_normal((600, d)).astype(np.float32)
     db[:600] /= np.linalg.norm(db[:600], axis=1, keepdims=True)
-    idx = ShardedIVFIndex(dim=d, mesh=mesh, n_clusters=C, nprobe=C,
-                          use_fused=False)
+    idx = ShardedIVFIndex(dim=d, mesh=mesh, n_clusters=C, nprobe=C)
     idx.build(db, [f"v{i}" for i in range(n)])
     idx.delete([f"v{i}" for i in range(600)])
     out = idx.search(q, 10)[0]

@@ -57,8 +57,7 @@ def test_shortfall_search_never_retrains(rng, mesh, monkeypatch):
     q = unit(rng, 1, d)
     db[:600] = q + 0.05 * rng.standard_normal((600, d)).astype(np.float32)
     db[:600] /= np.linalg.norm(db[:600], axis=1, keepdims=True)
-    idx = siv.ShardedIVFIndex(dim=d, mesh=mesh, n_clusters=C, nprobe=C,
-                              use_fused=False)
+    idx = siv.ShardedIVFIndex(dim=d, mesh=mesh, n_clusters=C, nprobe=C)
     idx.build(db, [f"v{i}" for i in range(n)])
 
     def _boom(*a, **kw):
@@ -91,7 +90,7 @@ def test_mesh_store_schedules_on_shortfall(rng, monkeypatch, tmp_path):
     db[:600] = q + 0.05 * rng.standard_normal((600, d)).astype(np.float32)
     db[:600] /= np.linalg.norm(db[:600], axis=1, keepdims=True)
     store = TpuMeshIVFStore(str(tmp_path), "sched", dim=d, n_clusters=4,
-                            nprobe=4, use_fused=False)
+                            nprobe=4)
     store.build(make_data(db))
 
     scheduled = []

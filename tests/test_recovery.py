@@ -73,22 +73,21 @@ def test_failed_task_retries_then_parks(tmp_path):
 
 def test_device_built_ivf_base_skipped_then_recovered(tmp_path):
     """A device-built IVF base (no host shadow) is NOT fetched at
-    checkpoint time (the device->host link makes multi-GB fetches take
-    ~an hour on remote TPUs); load flags the index and runtime.store()
+    checkpoint time (multi-GB device fetches are avoided); load flags the
+    index and runtime.store()
     re-streams the rows from SQL, folding them back into partitions."""
     import numpy as np
     import jax.numpy as jnp
 
     from memex_tpu.index import IVFIndex
-    from memex_tpu.ops.fused_topk import quantize_rows_int8
+    from memex_tpu.ops.quant import quantize_rows_int8
 
     rng = np.random.default_rng(3)
     n, d = 2048, 32
     db = rng.standard_normal((n, d)).astype(np.float32)
     db /= np.linalg.norm(db, axis=1, keepdims=True)
     codes, scales = quantize_rows_int8(jnp.asarray(db))
-    idx = IVFIndex(dim=d, n_clusters=8, nprobe=8, dtype="int8",
-                   use_fused=False)
+    idx = IVFIndex(dim=d, n_clusters=8, nprobe=8, dtype="int8")
     idx.build_device(codes, scales, [f"v{i}" for i in range(n)])
     idx.add(db[:5] * 0.99, [f"s{i}" for i in range(5)])
     path = str(tmp_path / "dev.ivf")
@@ -99,7 +98,7 @@ def test_device_built_ivf_base_skipped_then_recovered(tmp_path):
     meta = json.load(open(path + ".meta.json"))
     assert meta["base_skipped"] is True
     assert not os.path.exists(path + ".npz")
-    idx2 = IVFIndex.load(path, use_fused=False)
+    idx2 = IVFIndex.load(path)
     assert idx2.needs_recovery and idx2.data is None
     assert idx2.spill.count == 5  # spill segment log restored
 
@@ -108,7 +107,7 @@ def test_device_built_ivf_base_skipped_then_recovered(tmp_path):
     try:
         path2 = str(tmp_path / "dev2.ivf")
         idx.save(path2)
-        idx3 = IVFIndex.load(path2, use_fused=False)
+        idx3 = IVFIndex.load(path2)
         assert not idx3.needs_recovery and idx3.count == idx.count
     finally:
         del os.environ["MEMEX_CKPT_DEVICE_BASE"]
@@ -133,7 +132,7 @@ def test_forced_recovery_restreams_partial_store(tmp_path):
 
     # Build a partial IVF store: one row already present + recovery flag.
     store = TpuIVFStore(str(tmp_path / "vecf"), "colf", dim=64,
-                        n_clusters=4, nprobe=4, use_fused=False)
+                        n_clusters=4, nprobe=4)
     row = rt.db.query("SELECT * FROM embeddings WHERE collection='colf'")[0]
     from memex_tpu.db.models import iter_collection_embeddings
 

@@ -131,11 +131,9 @@ class TestIVFRefine:
         v, qs, exact = neartie
         n0 = 3072
         ids = [f"r{i}" for i in range(len(v))]
-        plain = IVFIndex(dim=64, n_clusters=16, nprobe=16, dtype="int8",
-                         use_fused=False)
+        plain = IVFIndex(dim=64, n_clusters=16, nprobe=16, dtype="int8")
         plain.build(v, ids)
-        idx = IVFIndex(dim=64, n_clusters=16, nprobe=16, dtype="int8",
-                       use_fused=False, refine=True)
+        idx = IVFIndex(dim=64, n_clusters=16, nprobe=16, dtype="int8", refine=True)
         idx.build(v[:n0], ids[:n0])
         idx.add(v[n0:], ids[n0:])
         r_plain = _recall(plain.search(qs, 10), exact)
@@ -146,7 +144,7 @@ class TestIVFRefine:
         assert _max_score_err(idx.search(qs[:8], 5), qs, v) < 5e-5
 
         idx.save(str(tmp_path / "ivf"))
-        back = IVFIndex.load(str(tmp_path / "ivf"), use_fused=False)
+        back = IVFIndex.load(str(tmp_path / "ivf"))
         assert back.refine and back.resid is not None
         assert back.search(qs[:4], 5) == idx.search(qs[:4], 5)
 

@@ -91,7 +91,7 @@ def test_sharded_index_add_is_idempotent(rng):
     d, n = 32, 40
     db = unit(rng, n, d)
     ids = [f"s{i}" for i in range(n)]
-    idx = ShardedFlatIndex(dim=d, mesh=mesh, capacity_per_shard=1024, use_fused=False)
+    idx = ShardedFlatIndex(dim=d, mesh=mesh, capacity_per_shard=1024)
     idx.add(db, ids)
     idx.add(db[:20], ids[:20])
     assert idx.count == n
@@ -116,12 +116,12 @@ def test_mesh_checkpoint_quantized_roundtrip(tmp_path, rng, dtype):
         VectorData(id=f"m{i}", document_id="doc", text=f"t{i}", vector=db[i], segment_id=i)
         for i in range(n)
     ]
-    s1 = TpuMeshStore(str(tmp_path), f"mq-{dtype}", dim=d, dtype=dtype, use_fused=False)
+    s1 = TpuMeshStore(str(tmp_path), f"mq-{dtype}", dim=d, dtype=dtype)
     s1.add_vectors(data)
     before = s1.search(db[5], 3)
     s1.checkpoint()
 
-    s2 = TpuMeshStore(str(tmp_path), f"mq-{dtype}", dim=d, dtype=dtype, use_fused=False)
+    s2 = TpuMeshStore(str(tmp_path), f"mq-{dtype}", dim=d, dtype=dtype)
     assert s2.count == n
     after = s2.search(db[5], 3)
     assert [h.id for h in after] == [h.id for h in before]
@@ -135,7 +135,8 @@ def test_mesh_checkpoint_quantized_roundtrip(tmp_path, rng, dtype):
 def test_flat_search_k_over_128_falls_back(rng):
     d, n = 32, 300
     db = unit(rng, n, d)
-    idx = FlatIndex(dim=d, use_fused=True)  # fused path would crash at k>128
+    idx = FlatIndex(dim=d)
+    idx._interpret = True  # the kernel serves k <= 128; wider goes to XLA
     idx.add(db, [f"w{i}" for i in range(n)])
     res = idx.search(db[:2], 200)
     assert len(res[0]) == 200
@@ -149,7 +150,8 @@ def test_sharded_search_k_over_128_falls_back(rng):
     mesh = Mesh(np.array(jax.devices()[:2]), ("shard",))
     d, n = 32, 300
     db = unit(rng, n, d)
-    idx = ShardedFlatIndex(dim=d, mesh=mesh, capacity_per_shard=1024, use_fused=True)
+    idx = ShardedFlatIndex(dim=d, mesh=mesh, capacity_per_shard=1024)
+    idx._interpret = True  # the kernel serves k <= 128; wider goes to XLA
     idx.add(db, [f"w{i}" for i in range(n)])
     res = idx.search(db[:1], 150)
     assert len(res[0]) == 150

@@ -1,7 +1,7 @@
 """Network-delegated vector backend: one memex_tpu node uses another as its
 vector store over /api/vectors/* (the role OpenSearch plays for the
-reference, storage/opensearch.rs:137-223 — but the remote here is a TPU
-index node, not a JVM cluster)."""
+reference, storage/opensearch.rs:137-223 — but the remote here is a
+device index node, not a JVM cluster)."""
 
 import asyncio
 import socket

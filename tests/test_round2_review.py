@@ -10,8 +10,6 @@
    tombstoned spill copy.
 4. force-recovery re-streamed the whole collection into the spill because
    IVFIndex.add did not dedupe against base ids.
-5. The batch kernels' packed chunk walk silently clamped chunk indexes
-   past 255 (recall loss) — now a loud assert.
 6. /api/fetch broke on relative redirect Locations (no urljoin).
 7. /api/fetch had a DNS-rebinding TOCTOU (guard resolved, requests
    re-resolved) — the connection is now pinned to the vetted address.
@@ -55,19 +53,19 @@ def test_ivf_delete_survives_two_checkpoint_cycles(rng, tmp_path, dtype):
     d, n = 32, 600
     db = unit(rng, n, d)
     ids = [f"r{i}" for i in range(n)]
-    idx = IVFIndex(dim=d, n_clusters=8, nprobe=8, dtype=dtype, use_fused=False)
+    idx = IVFIndex(dim=d, n_clusters=8, nprobe=8, dtype=dtype)
     idx.build(db, ids)
     victim = "r123"
     idx.delete([victim])
     path = str(tmp_path / "ck")
     idx.save(path)
 
-    loaded = IVFIndex.load(path, use_fused=False)
+    loaded = IVFIndex.load(path)
     assert victim not in loaded._live
     # The resurrect bug: this save skipped the base rewrite and emptied the
     # deleted list against the stale npz.
     loaded.save(path)
-    again = IVFIndex.load(path, use_fused=False)
+    again = IVFIndex.load(path)
     assert victim not in again._live
     hits = {sid for sid, _ in again.search(db[123:124], 10)[0]}
     assert victim not in hits
@@ -81,7 +79,7 @@ def test_flat_delete_then_readd_roundtrip(rng, tmp_path, dtype):
     d, n = 24, 300
     db = unit(rng, n, d)
     ids = [f"f{i}" for i in range(n)]
-    idx = FlatIndex(dim=d, dtype=dtype, use_fused=False)
+    idx = FlatIndex(dim=d, dtype=dtype)
     idx.add(db, ids)
     path = str(tmp_path / "flat")
     idx.save(path)
@@ -90,7 +88,7 @@ def test_flat_delete_then_readd_roundtrip(rng, tmp_path, dtype):
     idx.add(new_vec, ["f7"])  # re-add with a NEW vector
     idx.save(path)
 
-    loaded = FlatIndex.load(path, use_fused=False)
+    loaded = FlatIndex.load(path)
     # The re-added live row must survive; the tombstoned copy must not.
     assert "f7" in loaded._id_to_row
     hits = loaded.search(new_vec, 3)[0]
@@ -107,8 +105,7 @@ def test_sharded_delete_then_readd_restore(rng, tmp_path, mesh):
     d, n = 16, 200
     db = unit(rng, n, d)
     ids = [f"s{i}" for i in range(n)]
-    idx = ShardedFlatIndex(dim=d, mesh=mesh, capacity_per_shard=512,
-                           use_fused=False)
+    idx = ShardedFlatIndex(dim=d, mesh=mesh, capacity_per_shard=512)
     idx.add(db, ids)
     path = str(tmp_path / "sh")
     idx.save(path)
@@ -117,8 +114,7 @@ def test_sharded_delete_then_readd_restore(rng, tmp_path, mesh):
     idx.add(new_vec, ["s5"])
     idx.save(path)
 
-    fresh = ShardedFlatIndex(dim=d, mesh=mesh, capacity_per_shard=512,
-                             use_fused=False)
+    fresh = ShardedFlatIndex(dim=d, mesh=mesh, capacity_per_shard=512)
     restored = fresh.restore(path)
     assert restored == n  # n-1 originals + the re-added row
     assert "s5" in fresh._id_to_row
@@ -129,23 +125,20 @@ def test_sharded_delete_then_readd_restore(rng, tmp_path, mesh):
 def test_sharded_restore_drops_only_the_dead_copy(rng, tmp_path, mesh):
     d, n = 16, 120
     db = unit(rng, n, d)
-    idx = ShardedFlatIndex(dim=d, mesh=mesh, capacity_per_shard=256,
-                           use_fused=False)
+    idx = ShardedFlatIndex(dim=d, mesh=mesh, capacity_per_shard=256)
     idx.add(db, [f"x{i}" for i in range(n)])
     path = str(tmp_path / "sh2")
     idx.save(path)
     idx.delete(["x3", "x99"])
     idx.save(path)
-    fresh = ShardedFlatIndex(dim=d, mesh=mesh, capacity_per_shard=256,
-                             use_fused=False)
+    fresh = ShardedFlatIndex(dim=d, mesh=mesh, capacity_per_shard=256)
     assert fresh.restore(path) == n - 2
     assert "x3" not in fresh._id_to_row and "x99" not in fresh._id_to_row
     # Restore renumbers rows, so the log must NOT resume in place — the
     # next save rewrites and a fresh restore still agrees.
     fresh.delete(["x42"])
     fresh.save(path)
-    third = ShardedFlatIndex(dim=d, mesh=mesh, capacity_per_shard=256,
-                             use_fused=False)
+    third = ShardedFlatIndex(dim=d, mesh=mesh, capacity_per_shard=256)
     assert third.restore(path) == n - 3
     assert "x42" not in third._id_to_row
 
@@ -157,8 +150,7 @@ def test_ivf_delete_sticks_through_fold_spill(rng):
     d, n = 16, 400
     db = unit(rng, n, d)
     ids = [f"v{i}" for i in range(n)]
-    idx = IVFIndex(dim=d, n_clusters=4, nprobe=4, dtype="int8",
-                   use_fused=False)
+    idx = IVFIndex(dim=d, n_clusters=4, nprobe=4, dtype="int8")
     idx.build(db, ids)
     idx.delete(["v10"])
     idx.add(unit(rng, 30, d), [f"new{i}" for i in range(30)])
@@ -175,7 +167,7 @@ def test_ivf_readd_after_delete_is_live(rng, tmp_path):
     d, n = 16, 400
     db = unit(rng, n, d)
     ids = [f"v{i}" for i in range(n)]
-    idx = IVFIndex(dim=d, n_clusters=4, nprobe=4, use_fused=False)
+    idx = IVFIndex(dim=d, n_clusters=4, nprobe=4)
     idx.build(db, ids)
     idx.delete(["v20"])
     new_vec = unit(rng, 1, d)
@@ -186,7 +178,7 @@ def test_ivf_readd_after_delete_is_live(rng, tmp_path):
     # The stale table copy must not shadow the new row after a roundtrip.
     path = str(tmp_path / "ivf")
     idx.save(path)
-    loaded = IVFIndex.load(path, use_fused=False)
+    loaded = IVFIndex.load(path)
     hits = loaded.search(new_vec, 3)[0]
     assert hits and hits[0][0] == "v20"
     old = {sid: v for sid, v in loaded.search(db[20:21], 5)[0]}
@@ -201,34 +193,12 @@ def test_ivf_add_dedupes_against_base(rng):
     d, n = 16, 400
     db = unit(rng, n, d)
     ids = [f"b{i}" for i in range(n)]
-    idx = IVFIndex(dim=d, n_clusters=4, nprobe=4, use_fused=False)
+    idx = IVFIndex(dim=d, n_clusters=4, nprobe=4)
     idx.build(db, ids)
     spill_before = idx.spill.count
     idx.add(db, ids)  # force-recovery replays the whole collection
     assert idx.spill.count == spill_before  # nothing duplicated
     assert idx.count == n
-
-
-# -- 5: packed chunk walk must reject >256 chunks per bucket -----------------
-
-
-def test_chunk_walk_rejects_overflowing_buckets():
-    import jax.numpy as jnp
-
-    from memex_tpu.ops.ivf_batch import _chunk_walk
-
-    C, S = 4, 512
-    clist = jnp.arange(C, dtype=jnp.int32)
-    nact = jnp.asarray([C], jnp.int32)
-    with pytest.raises(AssertionError, match="256"):
-        _chunk_walk(jnp.full((C,), 257 * S, jnp.int32), clist, nact,
-                    M=257 * S, S=S)
-    # The boundary case (exactly 256 chunks, max packed index 255) is fine.
-    M = 256 * S
-    walk, n_chunks = _chunk_walk(jnp.full((C,), M, jnp.int32), clist, nact,
-                                 M=M, S=S)
-    assert int(n_chunks[0]) == C * 256
-    assert int(walk[255]) == 0 * 256 + 255  # last chunk of cluster 0
 
 
 # -- 6/7: fetch guard ---------------------------------------------------------
@@ -372,7 +342,7 @@ def test_fetch_guard_blocks(monkeypatch):
 def test_fold_spill_preserves_spill_shadow_and_rowids(rng):
     d = 16
     idx = IVFIndex(dim=d, n_clusters=4, nprobe=4, dtype="int8",
-                   bucket_factor=1.0, use_fused=False)
+                   bucket_factor=1.0)
     n = 400
     idx.build(unit(rng, n, d), [f"h{i}" for i in range(n)])
     assert idx._host_data is not None  # host-built
@@ -437,7 +407,7 @@ def test_flat_legacy_dead_ids_meta_still_loads(rng, tmp_path):
     import json
 
     d, n = 16, 40
-    idx = FlatIndex(dim=d, use_fused=False)
+    idx = FlatIndex(dim=d)
     idx.add(unit(rng, n, d), [f"L{i}" for i in range(n)])
     path = str(tmp_path / "legacy")
     idx.save(path)
@@ -446,7 +416,7 @@ def test_flat_legacy_dead_ids_meta_still_loads(rng, tmp_path):
     del meta["dead_rows"]
     meta["dead_ids"] = ["L4", "L9"]  # rewrite as an old checkpoint
     json.dump(meta, open(path + ".meta.json", "w"))
-    loaded = FlatIndex.load(path, use_fused=False)
+    loaded = FlatIndex.load(path)
     assert loaded.count == n - 2
     assert "L4" not in loaded._id_to_row and "L9" not in loaded._id_to_row
 
@@ -463,7 +433,7 @@ def test_ivf_store_delete_churn_triggers_rebuild(rng, tmp_path):
 
     d, n = 16, 2048
     store = TpuIVFStore(str(tmp_path), "churn", dim=d, n_clusters=4,
-                        nprobe=4, use_fused=False)
+                        nprobe=4)
     vecs = unit(rng, n, d)
     store.build([VectorData(id=f"c{i}", document_id="doc", text="",
                             vector=vecs[i], segment_id=i) for i in range(n)])

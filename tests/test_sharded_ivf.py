@@ -41,8 +41,7 @@ def mesh():
 
 def build_idx(rng, mesh, n=4096, d=32, C=16, nprobe=6, **kw):
     db = clustered(rng, n, d)
-    idx = ShardedIVFIndex(dim=d, mesh=mesh, n_clusters=C, nprobe=nprobe,
-                          use_fused=False, **kw)
+    idx = ShardedIVFIndex(dim=d, mesh=mesh, n_clusters=C, nprobe=nprobe, **kw)
     idx.build(db, [f"v{i}" for i in range(n)])
     return idx, db
 
@@ -69,10 +68,9 @@ class TestShardedIVF:
         scan (same codes, same dot) — single-device-equivalence anchor."""
         n, d, k = 2048, 32, 10
         db = clustered(rng, n, d)
-        idx = ShardedIVFIndex(dim=d, mesh=mesh, n_clusters=8, nprobe=8,
-                              use_fused=False)
+        idx = ShardedIVFIndex(dim=d, mesh=mesh, n_clusters=8, nprobe=8)
         idx.build(db, [f"v{i}" for i in range(n)])
-        flat = FlatIndex(dim=d, dtype="int8", use_fused=False)
+        flat = FlatIndex(dim=d, dtype="int8")
         flat.add(db, [f"v{i}" for i in range(n)])
         qs = clustered(rng, 6, d)
         a, b = idx.search(qs, k), flat.search(qs, k)
@@ -115,8 +113,7 @@ class TestShardedIVF:
         idx.save(path)
         qs = clustered(rng, 5, 32)
         before = idx.search(qs, 10)
-        idx2 = ShardedIVFIndex(dim=32, mesh=mesh, n_clusters=16, nprobe=6,
-                               use_fused=False)
+        idx2 = ShardedIVFIndex(dim=32, mesh=mesh, n_clusters=16, nprobe=6)
         n = idx2.restore(path)
         assert n == idx.count == 4096 + 64 - 1
         after = idx2.search(qs, 10)
@@ -138,30 +135,30 @@ class TestShardedIVF:
         seg = np.load(os.path.join(str(tmp_path), smeta["segments"][-1]))
         assert len(seg["ids"]) == 30
 
-    def test_fused_kernel_interpret_in_shard_map(self, rng, mesh):
-        """The batch-union Pallas kernel runs inside shard_map (interpret
-        mode) and agrees with the dense masked-union XLA path."""
+    def test_margin_prune_agrees_with_single_chip(self, rng, mesh):
+        """The masked-union SPMD scan applies the same margin rule as the
+        single-chip probe scan (ops/quant.prune_probes): with a margin
+        that prunes, top-1 still agrees with the unpruned search."""
         n, d = 2048, 32
         db = clustered(rng, n, d)
-        xla = ShardedIVFIndex(dim=d, mesh=mesh, n_clusters=16, nprobe=6,
-                              use_fused=False)
-        xla.build(db, [f"v{i}" for i in range(n)])
-        fus = ShardedIVFIndex(dim=d, mesh=mesh, n_clusters=16, nprobe=6,
-                              use_fused=True, interpret=True)
-        fus.build(db, [f"v{i}" for i in range(n)])
+        full = ShardedIVFIndex(dim=d, mesh=mesh, n_clusters=16, nprobe=6)
+        full.build(db, [f"v{i}" for i in range(n)])
+        pruned = ShardedIVFIndex(dim=d, mesh=mesh, n_clusters=16, nprobe=6,
+                                 prune_margin=0.2)
+        pruned.build(db, [f"v{i}" for i in range(n)])
         qs = clustered(rng, 4, d)
-        a, b = xla.search(qs, 8), fus.search(qs, 8)
+        a, b = full.search(qs, 8), pruned.search(qs, 8)
         for ha, hb in zip(a, b):
             ids_a = [s for s, _ in ha]
             ids_b = [s for s, _ in hb]
-            assert ids_a[0] == ids_b[0]  # top-1 survives slot banks
+            assert ids_a[0] == ids_b[0]
             assert len(set(ids_a) & set(ids_b)) >= 6
 
 
 class TestHundredMillionGeometry:
     def test_100m_shape_lowers_on_virtual_pod(self, mesh):
         """BASELINE config 5 geometry: 100M x 384 int8, C=16384 clusters,
-        bucket M rounded to the kernel's 512 alignment — the SPMD search
+        bucket M rounded to a 512 alignment — the SPMD search
         must trace and partition on an 8-way mesh (eval_shape: no buffers
         materialized). 38 GB of codes would not fit one chip; sharded it
         is ~4.8 GB/device on this virtual pod, ~0.6 GB/chip on 64 chips."""
@@ -170,8 +167,7 @@ class TestHundredMillionGeometry:
         N, D, C = 100_000_000, 384, 16384
         M = -(-int(1.2 * N / C) // 512) * 512
         Cp = C // 8
-        fn = make_ivf_search_fn(mesh, "shard", Cp, M, nprobe=64, kk=128,
-                                use_fused=True, dtype="int8", interpret=True)
+        fn = make_ivf_search_fn(mesh, "shard", Cp, M, nprobe=64, kk=128)
         out = jax.eval_shape(
             fn,
             jax.ShapeDtypeStruct((C, D), np.float32),
@@ -241,8 +237,7 @@ class TestShardedFoldSpill:
         path = str(tmp_path / "fm")
         idx.save(path)
         qs = clustered(rng, 4, 32)
-        idx2 = ShardedIVFIndex(dim=32, mesh=mesh, n_clusters=8, nprobe=8,
-                               use_fused=False)
+        idx2 = ShardedIVFIndex(dim=32, mesh=mesh, n_clusters=8, nprobe=8)
         assert idx2.restore(path) == idx.count
         a, b = idx.search(qs, 10), idx2.search(qs, 10)
         for ha, hb in zip(a, b):
@@ -284,7 +279,7 @@ class TestShardedIVFRefine:
 
     def _build(self, mesh, v, refine):
         idx = ShardedIVFIndex(dim=v.shape[1], mesh=mesh, n_clusters=16,
-                              nprobe=16, use_fused=False, refine=refine)
+                              nprobe=16, refine=refine)
         idx.build(v, [f"v{i}" for i in range(len(v))])
         return idx
 
@@ -313,7 +308,7 @@ class TestShardedIVFRefine:
         path = os.path.join(tmp_path, "ck")
         refined.save(path)
         fresh = ShardedIVFIndex(dim=v.shape[1], mesh=mesh, n_clusters=16,
-                                nprobe=16, use_fused=False, refine=True)
+                                nprobe=16, refine=True)
         assert fresh.restore(path) == len(v)
         assert fresh.resid is not None
         assert self._recall(fresh.search(qs, 10), exact) >= 0.97
@@ -342,8 +337,7 @@ class TestShardedCenteringCompat:
         import json as _json
 
         v = clustered(rng, 2048, 32)
-        idx = ShardedIVFIndex(dim=32, mesh=mesh, n_clusters=8, nprobe=8,
-                              use_fused=False, center=False)  # raw codes
+        idx = ShardedIVFIndex(dim=32, mesh=mesh, n_clusters=8, nprobe=8, center=False)  # raw codes
         idx.build(v, [f"v{i}" for i in range(len(v))])
         assert not idx.mean.any()
         path = os.path.join(tmp_path, "legacy")
@@ -353,8 +347,7 @@ class TestShardedCenteringCompat:
         meta.pop("mean", None)
         _json.dump(meta, open(path + ".meta.json", "w"))
 
-        back = ShardedIVFIndex(dim=32, mesh=mesh, n_clusters=8, nprobe=8,
-                               use_fused=False)  # center defaults ON
+        back = ShardedIVFIndex(dim=32, mesh=mesh, n_clusters=8, nprobe=8)  # center defaults ON
         assert back.restore(path) == len(v)
         assert back.mean is not None and not back.mean.any()
         # adds stay in the raw code space; scores agree with true cosines
@@ -366,14 +359,12 @@ class TestShardedCenteringCompat:
 
     def test_centered_checkpoint_roundtrip_scores(self, rng, mesh, tmp_path):
         v = clustered(rng, 2048, 32)
-        idx = ShardedIVFIndex(dim=32, mesh=mesh, n_clusters=8, nprobe=8,
-                              use_fused=False)
+        idx = ShardedIVFIndex(dim=32, mesh=mesh, n_clusters=8, nprobe=8)
         idx.build(v, [f"v{i}" for i in range(len(v))])
         assert idx.mean is not None
         path = os.path.join(tmp_path, "centered")
         idx.save(path)
-        back = ShardedIVFIndex(dim=32, mesh=mesh, n_clusters=8, nprobe=8,
-                               use_fused=False)
+        back = ShardedIVFIndex(dim=32, mesh=mesh, n_clusters=8, nprobe=8)
         assert back.restore(path) == len(v)
         np.testing.assert_allclose(back.mean, idx.mean)
         a = idx.search(v[:4], 5)

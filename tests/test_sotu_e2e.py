@@ -98,7 +98,7 @@ def test_sotu_ingest_and_top3_search(tmp_path, sotu_text):
 
 
 def test_sotu_tpu_store_matches_hnsw(tmp_path, sotu_text):
-    """Same embeddings, two stores: the TPU int8 fused index's top-3 must
+    """Same embeddings, two stores: the device int8 index's top-3 must
     agree with the HNSW graph store (the reference backend) — quality
     parity on embedding-distributed vectors, not Gaussians."""
     from memex_tpu.store.base import VectorData
@@ -114,13 +114,13 @@ def test_sotu_tpu_store_matches_hnsw(tmp_path, sotu_text):
                    vector=vecs[i])
         for i in range(n)
     ]
-    tpu = TpuFlatStore(str(tmp_path / "t"), "sotu", dim=64, dtype="int8")
+    flat = TpuFlatStore(str(tmp_path / "t"), "sotu", dim=64, dtype="int8")
     hnsw = HnswStore(str(tmp_path / "h"), "sotu", dim=64)
-    tpu.add_vectors(data)
+    flat.add_vectors(data)
     hnsw.add_vectors(data)
     qv = engine.encode_single("the state of our union is strong")
     for k in (3, 10):
-        a = [h.id for h in tpu.search(qv, k)]
+        a = [h.id for h in flat.search(qv, k)]
         b = [h.id for h in hnsw.search(qv, k)]
         # exact scan vs graph ANN: top result identical, high overlap
         assert a[0] == b[0]

@@ -48,7 +48,7 @@ def test_pod_lifecycle_2m(mesh, tmp_path_factory):
     scales = (rng.random(N, dtype=np.float32) * 0.005 + 0.005)
 
     idx = ShardedIVFIndex(dim=D, mesh=mesh, n_clusters=C, nprobe=16,
-                          bucket_factor=1.2, use_fused=False)
+                          bucket_factor=1.2)
     idx.build_device(
         jax.device_put(jnp.asarray(codes), idx._row_sh),
         jax.device_put(jnp.asarray(scales), idx._vec_sh),
@@ -90,7 +90,7 @@ def test_pod_lifecycle_2m(mesh, tmp_path_factory):
     ck = str(tmp_path_factory.mktemp("pod") / "pod.sivf")
     idx.save(ck)
     fresh = ShardedIVFIndex(dim=D, mesh=mesh, n_clusters=C, nprobe=16,
-                            bucket_factor=1.2, use_fused=False)
+                            bucket_factor=1.2)
     n_restored = fresh.restore(ck)
     assert n_restored == idx.count
     out4 = fresh.search(qs, 10)

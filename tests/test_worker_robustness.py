@@ -187,10 +187,8 @@ def test_encode_single_non_bucket_max_seq_length():
 def test_int8q_rerank_alive_mask_in_coarse_scan(rng=None):
     import jax.numpy as jnp
 
-    from memex_tpu.ops.fused_topk import (
-        fused_score_topk_int8q_rerank,
-        quantize_rows_int8,
-    )
+    from memex_tpu.index.flat import device_search
+    from memex_tpu.ops.quant import quantize_rows_int8
 
     rng = np.random.default_rng(5)
     d, n = 128, 2048
@@ -200,18 +198,17 @@ def test_int8q_rerank_alive_mask_in_coarse_scan(rng=None):
     q /= np.linalg.norm(q, axis=1, keepdims=True)
     db8, s8 = quantize_rows_int8(jnp.asarray(db))
     # Tombstone the true top rows: with alive ignored in the coarse scan
-    # they crowd the candidate bank; with in-kernel masking the top-k is
+    # they crowd the candidates; with in-kernel masking the top-k is
     # all-live.
     alive = np.ones((n,), np.float32)
     alive[:4] = 0.0
-    vals, idx = fused_score_topk_int8q_rerank(
-        db8, s8, jnp.asarray(q), 8, count=n, alive=jnp.asarray(alive),
-        rerank=64, block_n=1024, banks=4, interpret=True,
-    )
+    vals, idx = device_search(
+        db8, s8, jnp.asarray(alive), n, jnp.asarray(q), None, None,
+        k=8, k_ret=64, kernel=True, mode="int8q", interpret=True)
     idx = np.asarray(idx)
     vals = np.asarray(vals)
     live = vals > -1e29
-    assert live.all(), "bank crowded by tombstones left < k live hits"
+    assert live.all(), "candidates crowded by tombstones left < k live hits"
     assert not np.isin(idx[live], np.arange(4)).any()
 
 
@@ -255,7 +252,7 @@ def test_fused_query_path_chunks_past_terminal_bucket(tmp_path):
     from memex_tpu.store.tpu_store import TpuFlatStore
 
     eng = tiny_engine()
-    store = TpuFlatStore(None, "big", dim=eng.dim, use_fused=False)
+    store = TpuFlatStore(None, "big", dim=eng.dim)
     rng = np.random.default_rng(3)
     vecs = rng.standard_normal((64, eng.dim)).astype(np.float32)
     vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
@@ -305,7 +302,7 @@ def test_interrupted_rebuild_cleans_up_and_retries(tmp_path):
     def flaky(self, data):
         calls["n"] += 1
         if calls["n"] == 2:
-            raise RuntimeError("tunnel dropped mid-stream")
+            raise RuntimeError("device lost mid-stream")
         return orig(self, data)
 
     type(store).add_vectors = flaky
